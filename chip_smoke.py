@@ -7,19 +7,39 @@ toolkit; imports nothing of JAX. Phases, each printed on its own line; any
 failed check raises, so the script exits non-zero:
 
 0. refuse to run without a card; print the card's name and power limit;
-1. build (or load) the kernel library from csrc/ with nvcc;
+1. build (or load) the kernel library from csrc/ with nvcc, one process per
+   source, all started together;
 2. mesh-intersection kernel vs its plain PyTorch version on the card, on
    (a) the 512x512 Cornell camera wavefront and (b) a seeded 4,096-triangle
    soup x 262,144 rays with a finite t_max and a 50% triangle mask: bitwise
    agreement (or the reference's own tolerances), and both times;
 3. the 128x128 golden Cornell render through the port's render(), against
    tests/golden/config2_cornell_path_128.npy at atol 2e-3*max;
-4. the headline: Cornell box + sphere, 512x512, spp 32, path/MIS depth 4,
-   through render(); image checks, seconds per pass and rays/s, with the
-   kernel launch counts of that run;
-5. a JSON line of the kernels, then the JSON result line.
+4. the Cornell headline: Cornell box + sphere, 512x512, spp 32, path/MIS
+   depth 4, through render(); image checks, seconds per pass and rays/s,
+   with the kernel launch counts of that run;
+5. the octree kernel on the mesh bench scene (entry.mesh327k_setup:
+   327,680 triangles, leaf cap 192): set-up times, tree shape and memory;
+   (a) closest hit vs the plain traversal on the 512x512 camera wavefront,
+   (b) vs the brute-force kernel on the same rays, (c) any hit vs the plain
+   traversal on the packet-ordered shadow wavefront of one direct pass,
+   (d) closest hit vs the brute-force kernel on the 872,320-triangle
+   dragon stand-in (leaf cap 160);
+6. golden configuration 3 (textured uv sphere in an octree, direct) at
+   128x128 through render(), against tests/golden/
+   config3_mesh_octree_textured_128.npy at atol 2e-3*max, with both kernel
+   modes launched;
+7. the mesh headline: entry.mesh327k_setup(512, spp 4) through render();
+   image checks, seconds per pass and rays/s (2 rays per sample), with the
+   launch counts of each kernel mode in that run;
+8. a JSON line of the kernels (CUDA-event medians: of 5 for the kernels,
+   of 3 for the plain traversal and the brute kernel at full mesh size;
+   errors; launches; the bound: the least time the card could take for
+   the same work, from the counted fp32 operations at 67 TFLOP/s and the
+   bytes at 3.35 TB/s), then the JSON result line.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -33,13 +53,25 @@ import torch
 from computational_ray_tracer_tpu_torch import entry
 from computational_ray_tracer_tpu_torch.kernels import build
 from computational_ray_tracer_tpu_torch.models import integrator as integ
+from computational_ray_tracer_tpu_torch.ops import camera as cam
 from computational_ray_tracer_tpu_torch.ops import mesh_intersect_kernel as mik
+from computational_ray_tracer_tpu_torch.ops import octree as octmod
+from computational_ray_tracer_tpu_torch.ops import octree_kernel as okern
+from computational_ray_tracer_tpu_torch.ops import sensor as sen
 from computational_ray_tracer_tpu_torch.ops import triangle as trimod
+from computational_ray_tracer_tpu_torch.utils import mesh_gen
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "computational_ray_tracer_tpu_torch/csrc/mesh_intersect.cu"
-KERNEL_REPLACES = "computational_ray_tracer_tpu/ops/pallas_intersect.py:72"
+PKG = "computational_ray_tracer_tpu_torch/csrc/"
 HEADLINE_RES, HEADLINE_SPP = 512, 32
+MESH_SPP = 4
+# Image mean band of the mesh headline: a CPU render of the same scene at
+# 48x48, spp 2 (the plain traversal) has mean 0.3875; +-20%.
+MESH_MEAN_BAND = (0.31, 0.47)
+PLAIN_BUDGET_S = 60.0       # the plain traversal runs on all rays if
+PLAIN_SUBSET = 65536        # a subset of this size predicts it fits
+FP32_FLOPS = 67e12          # H100 SXM, outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
 
 
 def card_line():
@@ -49,20 +81,64 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps=5):
-    """Warm once, then the median of ``reps`` CUDA-event timings."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
+def median_ms(fn, reps=5, warm=True):
+    """Warm once (unless the caller just ran ``fn``), then the median of
+    ``reps`` CUDA-event timings."""
+    if warm:
         fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
+        torch.cuda.synchronize()
+    return statistics.median(timed(fn)[1] for _ in range(reps))
+
+
+def timed(fn):
+    """(fn(), its CUDA-event milliseconds), one run."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def bound(flops, nbytes):
+    """The least time (ms) the card could take: the larger of the fp32
+    operations over the fp32 peak and the bytes over the memory rate."""
+    t_ops = flops / FP32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes")
+
+
+def brute_bound(n, f, mask=None):
+    """Bound of a brute-force launch: every unmasked ray/triangle pair;
+    rays (7 floats), triangles (9), the mask and 4 outputs per ray once."""
+    f_used = f if mask is None else int(mask.sum())
+    return bound(n * f_used * mik.PAIR_FLOPS,
+                 4 * (7 * n + 9 * f + (0 if mask is None else f) + 4 * n))
+
+
+@contextlib.contextmanager
+def wrapped(module, name, before=None, after=None):
+    """Replace module.name for the block: ``before(*args)`` sees every
+    call's arguments and ``after(seconds)`` its host time to a sync."""
+    fn = getattr(module, name)
+
+    def call(*args, **kw):
+        if before is not None:
+            before(*args)
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        if after is not None:
+            after(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, call)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
 
 
 def compare(name, o, d, t_max, mesh, mask):
@@ -94,10 +170,13 @@ def compare(name, o, d, t_max, mesh, mask):
                                    atol=2e-5)
     ms = median_ms(kern)
     plain_ms = median_ms(plain)
-    row = {"case": name, "rays": o.shape[0], "triangles": mesh.n_triangles,
-           "bitwise": bitwise, "hit_agree": agree, "same_id": same_id,
+    n, f = o.shape[0], mesh.n_triangles
+    bound_ms, bound_by = brute_bound(n, f, mask)
+    row = {"case": name, "rays": n, "triangles": f, "bitwise": bitwise,
+           "hit_agree": agree, "same_id": same_id,
            "hit_frac": hk.float().mean().item(), "max_abs_err": err,
-           "ms": ms, "plain_ms": plain_ms}
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
     print("phase2", json.dumps(row), flush=True)
     return row
 
@@ -127,6 +206,187 @@ def image_checks(img):
     assert left[0] > left[1] and left[0] > left[2], f"left wall {left}"
     assert right[1] > right[0] and right[1] > right[2], f"right wall {right}"
     return mean, left.tolist(), right.tolist()
+
+
+def golden_check(phase, setup, golden_name):
+    """Render ``setup`` through render() and hold it to a golden."""
+    g_scene, g_camera, g_cfg = setup
+    film, sensor = integ.render(g_scene, g_camera, g_cfg,
+                                chunk=g_cfg.sampler.spp)
+    img = film.resolve(sensor, to_srgb=False, clip=False).cpu().numpy()
+    golden = np.load(os.path.join(ROOT, "tests", "golden",
+                                  golden_name + ".npy"))
+    atol = 2e-3 * max(float(golden.max()), 1e-3)
+    g_err = float(np.abs(img - golden).max())
+    assert np.isfinite(img).all() and g_err <= atol, \
+        f"{phase}: golden max |diff| {g_err} > atol {atol}"
+    return {"golden": golden_name, "max_abs_diff": g_err, "atol": atol}
+
+
+def hits_agree(name, k, r):
+    """Closest hits k vs reference r, (t, idx, b1, b2) each: hit masks equal
+    on >= 99.99% of rays; where both hit, t within rtol 1e-5 and, where the
+    ids agree, b1/b2 within atol 1e-5 (tests/test_pallas_octree.py:40-48);
+    ids equal on >= 99.9% of those rays, and an id mismatch only at a tie
+    (the two triangles' t within rtol 1e-5, checked with every t)."""
+    hk, hr = torch.isfinite(k[0]), torch.isfinite(r[0])
+    both = hk & hr
+    agree = (hk == hr).float().mean().item()
+    same = both & (k[1] == r[1])
+    same_id = (same.sum() / both.sum().clamp(min=1)).item()
+    t_abs = (k[0][both] - r[0][both]).abs()
+    t_err = t_abs / r[0][both].abs().clamp(min=1e-30)
+    b_err = max([(a[same] - b[same]).abs().max().item() if same.any()
+                 else 0.0 for a, b in zip(k[2:4], r[2:4])])
+    row = {"case": name, "rays": k[0].numel(), "hit_frac": hr.float().mean()
+           .item(), "hit_agree": agree, "same_id": same_id,
+           "id_mismatches": int((both & ~same).sum()),
+           "t_rel_err_max": t_err.max().item() if both.any() else 0.0,
+           "t_abs_err_max": t_abs.max().item() if both.any() else 0.0,
+           "b_abs_err_max": b_err,
+           "bitwise": all(torch.equal(a, b) for a, b in zip(k, r))}
+    assert agree >= 0.9999, f"{name}: hit masks agree on {agree}"
+    assert row["t_rel_err_max"] <= 1e-5, f"{name}: t {row['t_rel_err_max']}"
+    assert b_err <= 1e-5, f"{name}: barycentrics {b_err}"
+    assert same_id >= 0.999, f"{name}: same triangle on {same_id}"
+    return row
+
+
+def counters(tests, pops):
+    return {"tri_tests_mean": tests.float().mean().item(),
+            "tri_tests_max": int(tests.max()),
+            "node_pops_mean": pops.float().mean().item(),
+            "node_pops_max": int(pops.max())}
+
+
+def octree_bound(n, packed, tests, pops, out_words):
+    """Bound of one traversal launch: the counted pair and slab-test fp32
+    operations; rays (7 floats) and the three tree tables read once, and
+    ``out_words`` 4-byte outputs per ray written once."""
+    flops = (int(tests.sum()) * mik.PAIR_FLOPS
+             + int(pops.sum()) * 8 * okern.SLAB_FLOPS)
+    return bound(flops, 4 * n * (7 + out_words) + packed.nbytes())
+
+
+def octree_phase(dev):
+    """Phase 5 on the mesh bench scene; returns (scene, camera, cfg, rows)
+    with the kernel rows of the closest-hit and any-hit modes."""
+    times = {}
+    torch.cuda.reset_peak_memory_stats()
+    keep = lambda key: lambda s: times.__setitem__(key, s)
+    t0 = time.perf_counter()
+    with wrapped(octmod, "build_octree", after=keep("build_octree_s")), \
+            wrapped(okern, "pack_from_numpy", after=keep("pack_upload_s")):
+        scene, camera, cfg = entry.mesh327k_setup(HEADLINE_RES, MESH_SPP,
+                                                  device=dev)
+    torch.cuda.synchronize()
+    times["setup_s"] = time.perf_counter() - t0
+    packed = scene.packed_octree
+    print("phase5_setup", json.dumps({
+        **times, "octree": scene.octree.info(), "depth": packed.depth,
+        "triangles": scene.mesh.n_triangles, "cap": packed.cap,
+        "leaf_table_mb": packed.leaf_verts.numel() * 4 / 1e6,
+        "node_table_mb": packed.nodes.numel() * 4 / 1e6,
+        "max_memory_allocated_mb": torch.cuda.max_memory_allocated() / 1e6}),
+        flush=True)
+
+    # (a) closest hit vs the plain traversal on the camera wavefront
+    _, _, _, o, d = integ.camera_wavefront(camera, cfg, integ.make_filter(),
+                                           0, dev)
+    o, d = o.contiguous(), d.contiguous()
+    n = o.shape[0]
+    t_inf = torch.full((n,), float("inf"), device=dev)
+    plain = lambda oo, dd, tt: octmod.octree_traverse(
+        oo, dd, tt, packed.tree, packed.tri_verts, packed.tri_mask)
+    kern = lambda: okern.octree_intersect(o, d, t_inf, packed)
+    k = kern()
+    gen = torch.Generator().manual_seed(0)
+    sub = torch.sort(torch.randperm(n, generator=gen)[:PLAIN_SUBSET]).values
+    sub = sub.to(dev)
+    _, sub_ms = timed(lambda: plain(o[sub], d[sub], t_inf[sub]))
+    if sub_ms * 1e-3 * n / PLAIN_SUBSET <= PLAIN_BUDGET_S:
+        rays, ray_set = "all", (o, d, t_inf)
+    else:
+        rays = f"seeded subset of {PLAIN_SUBSET}"
+        ray_set = (o[sub], d[sub], t_inf[sub])
+    k_set = lambda: okern.octree_intersect(*ray_set, packed)
+    ms = median_ms(k_set)
+    p = plain(*ray_set)
+    plain_ms = median_ms(lambda: plain(*ray_set), 3, warm=False)
+    row_a = hits_agree("a_closest_vs_plain", k_set(), p[:4])
+    _, _, _, _, tests, pops = okern.octree_intersect(*ray_set, packed,
+                                                     stats=True)
+    bound_ms, bound_by = octree_bound(ray_set[2].numel(), packed, tests,
+                                      pops, 6)
+    row_a.update(plain_rays=rays, ms=ms, plain_ms=plain_ms,
+                 plain_subset_ms=sub_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, **counters(tests, pops))
+    print("phase5a", json.dumps(row_a), flush=True)
+
+    # (b) closest hit vs the brute-force kernel, full wavefront
+    brute = lambda: mik.mesh_intersect(o, d, t_inf, scene.mesh)[:4]
+    row_b = hits_agree("b_closest_vs_brute_kernel", k, brute())
+    row_b.update(ms=median_ms(kern), brute_kernel_ms=median_ms(brute, 3),
+                 pairs=n * scene.mesh.n_triangles,
+                 brute_bound_ms=brute_bound(n, scene.mesh.n_triangles)[0])
+    print("phase5b", json.dumps(row_b), flush=True)
+
+    # (c) any hit vs plain on the sorted shadow wavefront of a direct pass
+    shadow = []
+    with wrapped(okern, "octree_anyhit",
+                 before=lambda *a: shadow.append([x.clone() for x in a[:3]])):
+        integ.render_pass(scene, camera, cfg, integ.make_filter(),
+                          sen.PixelSensor.create(), 0)
+    assert len(shadow) == 1, f"{len(shadow)} any-hit calls in a direct pass"
+    so, sd, st = shadow[0]
+    kern_any = lambda: okern.octree_anyhit(so, sd, st, packed)
+    h_k = kern_any()
+    h_p = plain(so, sd, st)[1] >= 0
+    plain_any_ms = median_ms(lambda: plain(so, sd, st), 3, warm=False)
+    assert torch.equal(h_k, h_p), \
+        f"c: any hit differs on {int((h_k != h_p).sum())} rays"
+    _, tests, pops = okern.octree_anyhit(so, sd, st, packed, stats=True)
+    bound_any, bound_any_by = octree_bound(st.numel(), packed, tests, pops, 3)
+    row_c = {"case": "c_anyhit_vs_plain", "rays": st.numel(),
+             "alive_frac": (st > 0).float().mean().item(),
+             "occluded_frac": h_k.float().mean().item(), "equal": True,
+             "ms": median_ms(kern_any), "plain_ms": plain_any_ms,
+             "bound_ms": bound_any, "bound_by": bound_any_by,
+             **counters(tests, pops)}
+    print("phase5c", json.dumps(row_c), flush=True)
+
+    # (d) the irregular reference-scale mesh vs the brute-force kernel
+    t0 = time.perf_counter()
+    v, f, uv = mesh_gen.dragon_stand_in()
+    gen_s = time.perf_counter() - t0
+    dmesh = trimod.MeshData.build(v, f, uvs=uv, device=dev)
+    t0 = time.perf_counter()
+    dtree = octmod.build_octree(v, f, 160)
+    build_s = time.perf_counter() - t0
+    dpacked = okern.pack_from_numpy(dtree, dmesh)
+    dcam = cam.PerspectiveCamera.create((0, 12, -52), (HEADLINE_RES,) * 2,
+                                        fov_y=45.0, look_at=(0, -1, 0))
+    _, _, _, do, dd = integ.camera_wavefront(dcam, cfg, integ.make_filter(),
+                                             0, dev)
+    do, dd = do.contiguous(), dd.contiguous()
+    kern_d = lambda: okern.octree_intersect(do, dd, t_inf, dpacked)
+    dbrute = lambda: mik.mesh_intersect(do, dd, t_inf, dmesh)[:4]
+    row_d = hits_agree("d_dragon_closest_vs_brute_kernel", kern_d(),
+                       dbrute())
+    _, _, _, _, tests, pops = okern.octree_intersect(do, dd, t_inf, dpacked,
+                                                     stats=True)
+    bound_d, bound_d_by = octree_bound(n, dpacked, tests, pops, 6)
+    row_d.update(triangles=dmesh.n_triangles, octree=dtree.info(),
+                 depth=dpacked.depth, generate_s=gen_s, build_octree_s=build_s,
+                 leaf_table_mb=dpacked.leaf_verts.numel() * 4 / 1e6,
+                 ms=median_ms(kern_d), brute_kernel_ms=median_ms(dbrute, 3),
+                 bound_ms=bound_d, bound_by=bound_d_by,
+                 brute_bound_ms=brute_bound(n, dmesh.n_triangles)[0],
+                 max_memory_allocated_mb=torch.cuda.max_memory_allocated()
+                 / 1e6, **counters(tests, pops))
+    print("phase5d", json.dumps(row_d), flush=True)
+    del dpacked, dmesh
+    return scene, camera, cfg, row_a, row_c
 
 
 def main():
@@ -164,21 +424,13 @@ def main():
 
     # phase 3
     launches0 = mik.LAUNCHES
-    g_scene, g_camera, g_cfg = entry.golden2_cornell_path(128, 4, dev)
-    film, sensor = integ.render(g_scene, g_camera, g_cfg, chunk=4)
-    img = film.resolve(sensor, to_srgb=False, clip=False).cpu().numpy()
-    golden = np.load(os.path.join(ROOT, "tests", "golden",
-                                  "config2_cornell_path_128.npy"))
-    atol = 2e-3 * max(float(golden.max()), 1e-3)
-    g_err = float(np.abs(img - golden).max())
-    assert np.isfinite(img).all() and g_err <= atol, \
-        f"golden max |diff| {g_err} > atol {atol}"
+    row = golden_check("phase3", entry.golden2_cornell_path(128, 4, dev),
+                       "config2_cornell_path_128")
     assert mik.LAUNCHES > launches0, "golden render did not launch the kernel"
-    print("phase3", json.dumps({"max_abs_diff": g_err, "atol": atol,
-                                "launches": mik.LAUNCHES - launches0}),
+    print("phase3", json.dumps({**row, "launches": mik.LAUNCHES - launches0}),
           flush=True)
 
-    # phase 4: one warm-up pass, then the timed headline render
+    # phase 4: one warm-up pass, then the timed Cornell headline render
     integ.render(scene, camera, cfg, passes=1)
     torch.cuda.synchronize()
     mik.LAUNCHES = 0
@@ -198,14 +450,68 @@ def main():
         "s_per_pass": dt / HEADLINE_SPP, "rays_per_s": rays / dt,
         "launches": launches, "image_mean": mean, "left_wall": left,
         "right_wall": right, "card": card}), flush=True)
+    del scene, film, mesh_s, o_s, d_s
 
     # phase 5
+    m_scene, m_camera, m_cfg, row_closest, row_any = octree_phase(dev)
+
+    # phase 6
+    before = (okern.LAUNCHES_CLOSEST, okern.LAUNCHES_ANYHIT)
+    row = golden_check("phase6",
+                       entry.golden3_mesh_octree_textured(128, 2, dev),
+                       "config3_mesh_octree_textured_128")
+    modes = (okern.LAUNCHES_CLOSEST - before[0],
+             okern.LAUNCHES_ANYHIT - before[1])
+    assert min(modes) > 0, f"golden 3 launched the modes {modes} times"
+    print("phase6", json.dumps({**row, "launches_closest": modes[0],
+                                "launches_anyhit": modes[1]}), flush=True)
+
+    # phase 7: one warm-up pass, then the timed mesh headline render
+    integ.render(m_scene, m_camera, m_cfg, passes=1)
+    torch.cuda.synchronize()
+    okern.LAUNCHES_CLOSEST = okern.LAUNCHES_ANYHIT = 0
+    t0 = time.perf_counter()
+    film, sensor = integ.render(m_scene, m_camera, m_cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    m_launches = (okern.LAUNCHES_CLOSEST, okern.LAUNCHES_ANYHIT)
+    assert min(m_launches) > 0, f"mesh headline launched {m_launches}"
+    img = film.resolve(sensor).cpu().numpy()
+    h, w, _ = img.shape
+    centre = img[int(0.45 * h):int(0.55 * h), int(0.45 * w):int(0.55 * w)]
+    m_mean = float(img.mean())
+    assert np.isfinite(img).all(), "non-finite pixels"
+    covered = float((centre.max(-1) > 0).mean())
+    assert covered > 0.99, f"the mesh covers {covered} of the centre"
+    assert img[:8, :8].max() == 0.0, "a corner that misses the mesh is lit"
+    assert MESH_MEAN_BAND[0] < m_mean < MESH_MEAN_BAND[1], \
+        f"mesh image mean {m_mean} outside {MESH_MEAN_BAND}"
+    print("phase7", json.dumps({
+        "res": HEADLINE_RES, "spp": MESH_SPP,
+        "s_per_pass": dt / MESH_SPP,
+        "rays_per_s": HEADLINE_RES * HEADLINE_RES * 2 * MESH_SPP / dt,
+        "launches_closest": m_launches[0], "launches_anyhit": m_launches[1],
+        "image_mean": m_mean, "centre_mean": float(centre.mean()),
+        "card": card}), flush=True)
+
+    # phase 8
     cam_row = rows[0]
-    print(json.dumps({"kernels": [{
-        "name": "mesh_intersect", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": cam_row["ms"], "plain_ms": cam_row["plain_ms"]}]}), flush=True)
+    kernel = lambda name, src, replaces, n, r, err: {
+        "name": name, "route": "cuda", "source": PKG + src,
+        "replaces": replaces, "launches": n, "max_abs_err": err,
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None}
+    octree_src = "computational_ray_tracer_tpu/ops/pallas_octree.py:242"
+    print(json.dumps({"kernels": [
+        kernel("mesh_intersect", "mesh_intersect.cu",
+               "computational_ray_tracer_tpu/ops/pallas_intersect.py:72",
+               launches, cam_row, max(r["max_abs_err"] for r in rows)),
+        kernel("octree_closest", "octree_traverse.cu", octree_src,
+               m_launches[0], row_closest,
+               max(row_closest["t_abs_err_max"],
+                   row_closest["b_abs_err_max"])),
+        kernel("octree_anyhit", "octree_traverse.cu", octree_src,
+               m_launches[1], row_any, 0.0)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,10 +10,17 @@ from a JAX ``Scene``; nothing here imports jax):
   ``sphere_mat``;
 - optionally ``mesh.{positions,normals,uvs,tangents,bitangents,indices}``
   and ``mesh_tri_mat``, and ``tri_mask``;
+- optionally the six arrays of the reference's ``Octree`` as
+  ``octree.{node_lo,node_hi,node_child0,node_leaf_id,leaf_tris,
+  leaf_counts}``, packed here with the port's own packer, so both packages
+  traverse the identical tree;
+- optionally ``texture``, the (Ht, Wt, 3) sigmoid coefficients;
 - ``wr`` (world radius).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -21,12 +28,15 @@ import torch
 from computational_ray_tracer_tpu_torch.models import lights as lgt
 from computational_ray_tracer_tpu_torch.models import materials as mat
 from computational_ray_tracer_tpu_torch.models.scene import Scene
+from computational_ray_tracer_tpu_torch.ops import octree as octmod
+from computational_ray_tracer_tpu_torch.ops import octree_kernel as okern
 from computational_ray_tracer_tpu_torch.ops import shapes as shp
 from computational_ray_tracer_tpu_torch.ops import triangle as trimod
 
 SPHERE_FIELDS = ("radius", "z_min", "z_max", "phi_max", "o2w", "w2o")
 MESH_FIELDS = ("positions", "normals", "uvs", "tangents", "bitangents",
                "indices")
+OCTREE_FIELDS = tuple(f.name for f in dataclasses.fields(octmod.Octree))
 
 
 def _sub(arrays, prefix):
@@ -34,7 +44,7 @@ def _sub(arrays, prefix):
             if k.startswith(prefix + ".")}
 
 
-def scene_from_numpy(arrays: dict, device="cpu") -> Scene:
+def scene_from_numpy(arrays: dict, device="cuda") -> Scene:
     f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     i64 = lambda a: torch.tensor(np.asarray(a, np.int64), device=device)
     materials = mat.MaterialTable.from_arrays(_sub(arrays, "materials"),
@@ -45,7 +55,7 @@ def scene_from_numpy(arrays: dict, device="cpu") -> Scene:
         sp = _sub(arrays, "spheres")
         spheres = shp.SphereTable(*[f32(sp[k]) for k in SPHERE_FIELDS])
         sphere_mat = i64(arrays["sphere_mat"])
-    mesh = tri_mat = tri_mask = None
+    mesh = tri_mat = tri_mask = tree = packed = tex = None
     if "mesh.positions" in arrays:
         mesh = trimod.MeshData.from_arrays(
             *[_sub(arrays, "mesh")[k] for k in MESH_FIELDS], device=device)
@@ -53,6 +63,13 @@ def scene_from_numpy(arrays: dict, device="cpu") -> Scene:
         if arrays.get("tri_mask") is not None:
             tri_mask = torch.tensor(np.asarray(arrays["tri_mask"], bool),
                                     device=device)
+        if "octree.node_lo" in arrays:
+            oc = _sub(arrays, "octree")
+            tree = octmod.Octree(*[np.asarray(oc[k]) for k in OCTREE_FIELDS])
+            packed = okern.pack_from_numpy(tree, mesh, tri_mask)
+    if arrays.get("texture") is not None:
+        tex = f32(arrays["texture"])
     has_rough = bool((materials.kind == mat.ROUGH_CONDUCTOR).any())
-    return Scene(spheres, mesh, materials, lights, sphere_mat, tri_mat, None,
-                 tri_mask, wr=float(arrays["wr"]), has_rough=has_rough)
+    return Scene(spheres, mesh, materials, lights, sphere_mat, tri_mat, tex,
+                 tri_mask, tree, packed, wr=float(arrays["wr"]),
+                 has_rough=has_rough)

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``csrc/*.cu`` of the package into one
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` of the package, one
+process per source, all started together, and links the objects into one
 shared library with a plain C interface,
 ``computational_ray_tracer_tpu_torch/build/libcrt_kernels.so``, which is
 loaded with ctypes. The library is rebuilt whenever the hash of the sources
@@ -29,7 +30,7 @@ LIB_PATH = os.path.join(BUILD_DIR, "libcrt_kernels.so")
 HASH_PATH = os.path.join(BUILD_DIR, "libcrt_kernels.sha256")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _LIB = None
@@ -70,14 +71,28 @@ def build():
                 return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = LIB_PATH + f".tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in _sources()
-                                               if s.endswith(".cu")]]
+    nvcc = _nvcc()
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s) + f".{os.getpid()}.o")
+            for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for src, obj in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    failed = [src for src, p in zip(srcs, procs) if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        failed = ["link"] if link.returncode != 0 else []
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp, LIB_PATH)
     with open(HASH_PATH, "w") as fh:
         fh.write(digest + "\n")
@@ -92,6 +107,9 @@ def load_library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.crt_mesh_intersect.argtypes = [p, p, p, p, p, i, i, p, p, p, p, p]
         lib.crt_mesh_intersect.restype = i
+        lib.crt_octree_traverse.argtypes = [p, p, p, i, p, p, p, i, i, p, p, p,
+                                            p, p, p, p]
+        lib.crt_octree_traverse.restype = i
         lib.crt_error_string.argtypes = [i]
         lib.crt_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -8,7 +8,7 @@ decision is a pure function of (seed, pixel, sample, dim) through the
 counter-based samplers, so values match the reference's for the same
 inputs. Sampling decisions are detached.
 
-Only the ``path`` integrator (MIS) is ported; ``direct``, ``simple`` and
+The ``path`` (MIS) and ``direct`` integrators are ported; ``simple`` and
 ``walk``, the ``stratified`` and ``sobol_global`` samplers, and
 ``compact=True`` raise until their ROADMAP Queue 1 items land. The
 reference's default gaussian filter and XYZ sensor are the only ones
@@ -71,14 +71,14 @@ class SamplerConfig:
 class RenderConfig:
     resolution: tuple = (256, 256)          # (W, H)
     sampler: SamplerConfig = SamplerConfig()
-    integrator: str = "path"                # path (MIS) only
+    integrator: str = "path"                # path (MIS) | direct
     max_depth: int = 5
     rr_start: int = 3                       # Russian roulette from here
     ray_eps_scale: float = 3e-5             # spawn offset / (|p| + t)
     compact: bool = False                   # not ported: raises
 
     def __post_init__(self):
-        if self.integrator != "path":
+        if self.integrator not in ("path", "direct"):
             raise NotImplementedError(
                 f"integrator {self.integrator!r} is not ported yet "
                 "(ROADMAP Queue 1 item 8)")
@@ -108,6 +108,47 @@ def _cache_select(vals, idx):
     idx = torch.clamp(idx, 0, vals.shape[-1] - 1)
     return torch.gather(vals, -1, idx[..., None, None].expand(
         vals.shape[:-1] + (1,)))[..., 0]
+
+
+def _tex_coeffs(scene, si):
+    if scene.texture is None:
+        return None
+    return texture_lookup(scene.texture, si.uv)
+
+
+def li_direct(scene, o, d, wl, pixel, sample_idx, cfg):
+    """Single-bounce direct lighting: front-face emission at the camera
+    hit plus one light sample, f * Li * cos / pdf, behind a shadow ray.
+    Camera rays that miss carry dead shadow rays."""
+    si, mid = scene_intersect(scene, o, d,
+                              torch.full_like(o[..., 0], float("inf")))
+    mrow = mat.MaterialView.create(scene.materials, mid)
+    lights = scene.lights
+    n_l = lights.n_lights
+    n_m = scene.materials.kind.shape[0]
+    svals = _spectral_cache(scene, wl.lam)
+    emit = _cache_select(svals[..., n_l:n_l + n_m], mid)
+    eta_s = _cache_select(svals[..., n_l + n_m:n_l + 2 * n_m], mid)
+    k_s = _cache_select(svals[..., n_l + 2 * n_m:n_l + 3 * n_m], mid)
+    zero = torch.zeros_like(emit)
+    L = torch.where((si.valid & ~si.backface)[..., None], emit, zero)
+
+    s = cfg.sampler
+    u_sel = s.get_1d(pixel, sample_idx, DIM_BOUNCE0)
+    u_pos = s.get_2d(pixel, sample_idx, DIM_BOUNCE0 + 1)
+    wi, dist, li_val, pdf, _ = lgt.sample_light(
+        lights, si.p, si.n, u_sel, u_pos, svals[..., :n_l],
+        scene.world_radius())
+    f, _ = mat.bsdf_eval(mrow, si.n, si.wo, wi, wl.lam, (eta_s, k_s),
+                         _tex_coeffs(scene, si), enable_rough=scene.has_rough)
+    cos_i = torch.clamp(torch.sum(wi * si.n, dim=-1), min=0.0)
+    dist = torch.where(si.valid, dist, -torch.ones_like(dist))
+    occluded = scene_occluded(scene, si.p, wi, dist, spawn_eps(si, cfg),
+                              si.n)
+    contrib = f * li_val * (cos_i / torch.clamp(pdf, min=1e-12))[..., None]
+    contrib = torch.where((si.valid & ~occluded)[..., None], contrib,
+                          torch.zeros_like(contrib))
+    return L + contrib
 
 
 def _init_path_state(scene, o, d, wl):
@@ -146,8 +187,7 @@ def _bounce_step(scene, cfg, state, depth, pixel, sample_idx):
     si, mid = scene_intersect(scene, o, d, t_max)
     hit = si.valid & alive
     mrow = mat.MaterialView.create(scene.materials, mid)
-    tex = (None if scene.texture is None
-           else texture_lookup(scene.texture, si.uv))
+    tex = _tex_coeffs(scene, si)
 
     svals = state["svals"]
     n_l = lights.n_lights
@@ -277,7 +317,10 @@ def render_pass(scene, camera, cfg: RenderConfig, filter_obj, sensor,
     sample_idx = int(sample_idx)
     pixel, wl, fw, o, d = camera_wavefront(camera, cfg, filter_obj,
                                            sample_idx, scene.device)
-    L, wl_out = _path_scan(scene, o, d, wl, pixel, sample_idx, cfg)
+    if cfg.integrator == "direct":
+        L, wl_out = li_direct(scene, o, d, wl, pixel, sample_idx, cfg), wl
+    else:
+        L, wl_out = _path_scan(scene, o, d, wl, pixel, sample_idx, cfg)
     rgb = torch.clamp(sensor.to_sensor_rgb(L, wl_out), min=0.0)
     return rgb.reshape(h, w, 3), fw.reshape(h, w)
 

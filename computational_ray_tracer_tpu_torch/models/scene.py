@@ -1,10 +1,12 @@
 """Scene description and unified intersection (``computational_ray_tracer_
-tpu/models/scene.py``), brute-force mesh path.
+tpu/models/scene.py``): spheres and a triangle mesh, the mesh either brute
+force or in an octree.
 
-On a CUDA device the mesh always goes through the hand-written kernel
-(``ops/mesh_intersect_kernel.py``; the reference needs ``use_pallas=True``
-for its kernel); on the CPU it runs the kernel's plain version. The octree
-path is not ported yet.
+On a CUDA device every mesh query goes through a hand-written kernel: the
+brute mesh through ``ops/mesh_intersect_kernel.py`` (the reference needs
+``use_pallas=True`` for its kernel), the octree through
+``ops/octree_kernel.py`` in its closest-hit and any-hit modes. On the CPU
+the same wrappers run the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -18,15 +20,13 @@ import torch
 from computational_ray_tracer_tpu_torch.ops import shapes as shp
 from computational_ray_tracer_tpu_torch.ops import triangle as trimod
 from computational_ray_tracer_tpu_torch.ops import mesh_intersect_kernel as mik
+from computational_ray_tracer_tpu_torch.ops import octree as octmod
+from computational_ray_tracer_tpu_torch.ops import octree_kernel as okern
 from computational_ray_tracer_tpu_torch.models.materials import (
     MaterialTable, ROUGH_CONDUCTOR)
 from computational_ray_tracer_tpu_torch.models.lights import LightTable
 
 TYPE_NONE, TYPE_SPHERE, TYPE_MESH = 0, 1, 4
-
-OCTREE_TODO = ("use_octree=True: the octree mesh path is not ported yet "
-               "(ROADMAP.md Queue 1 item 9 / Queue 2 item 2); pass "
-               "use_octree=False")
 
 
 @dataclasses.dataclass
@@ -39,6 +39,8 @@ class Scene:
     mesh_tri_mat: Optional[torch.Tensor]   # (F,) material per triangle
     texture: Optional[torch.Tensor]        # (Ht, Wt, 3) sigmoid coeffs
     tri_mask: Optional[torch.Tensor]       # (F,) keep mask
+    octree: Optional[octmod.Octree] = None           # host arrays
+    packed_octree: Optional[okern.PackedOctree] = None
     wr: float = 100.0                      # world radius (static)
     has_rough: bool = True                 # any GGX material present
 
@@ -51,24 +53,39 @@ class Scene:
 
     @classmethod
     def build(cls, materials, lights, spheres=None, mesh=None,
-              use_octree=True, device="cpu"):
-        """Host-side assembly as the reference's ``Scene.build`` (spheres
-        and a brute-force mesh). ``mesh`` is a MeshData or (MeshData,
-        per-triangle material ids)."""
-        if use_octree and mesh is not None:
-            raise NotImplementedError(OCTREE_TODO)
+              use_octree=True, octree_capacity=None, texture_rgb=None,
+              device="cuda"):
+        """Host-side assembly as the reference's ``Scene.build``. ``mesh``
+        is a MeshData or (MeshData, per-triangle material ids) on
+        ``device``; with ``use_octree`` it is put in an octree of leaf
+        capacity ``octree_capacity`` (default ``TRIANGLE_CAPACITY``).
+        ``texture_rgb`` (H, W, 3) linear RGB becomes sigmoid coefficients
+        through the sRGB coefficient table."""
         sph = sph_m = None
         if spheres:
             sph = shp.SphereTable.build(spheres, device)
             sph_m = torch.as_tensor([int(s.get("material", 0))
                                      for s in spheres], device=device)
-        tri_mat = None
+        tri_mat = tree = packed = None
         if mesh is not None:
             mesh, tri_mat = mesh if isinstance(mesh, tuple) else (mesh, None)
             tri_mat = (torch.zeros(mesh.n_triangles, dtype=torch.int64)
                        if tri_mat is None else torch.as_tensor(
                            np.asarray(tri_mat, np.int64)))
             tri_mat = tri_mat.to(device)
+            if use_octree:
+                cap = (octree_capacity if octree_capacity is not None
+                       else octmod.TRIANGLE_CAPACITY)
+                tree = octmod.build_octree(mesh.positions.cpu().numpy(),
+                                           mesh.indices.cpu().numpy(), cap)
+                packed = okern.pack_from_numpy(tree, mesh)
+        tex = None
+        if texture_rgb is not None:
+            from computational_ray_tracer_tpu_torch.ops import color
+            img = np.asarray(texture_rgb, np.float32)
+            tex = color.RGBToSpectrumTable.srgb().lookup(
+                torch.as_tensor(img.reshape(-1, 3))).reshape(img.shape)
+            tex = tex.to(device)
         mats = (materials if isinstance(materials, MaterialTable)
                 else MaterialTable.build(materials, device))
         lts = (lights if isinstance(lights, LightTable)
@@ -80,13 +97,41 @@ class Scene:
             r = max(r, float(sph.o2w[:, :3, 3].abs().max())
                     + float(sph.radius.abs().max()))
         has_rough = bool((mats.kind == ROUGH_CONDUCTOR).any())
-        return cls(sph, mesh, mats, lts, sph_m, tri_mat, None, None,
-                   wr=10.0 * r, has_rough=has_rough)
+        return cls(sph, mesh, mats, lts, sph_m, tri_mat, tex, None, tree,
+                   packed, wr=10.0 * r, has_rough=has_rough)
+
+
+def _packet_order(o, d, alive):
+    """Permutation sorting rays by (direction octant, 8^3 Morton cell of
+    the origin among the alive rays), dead rays last: neighbouring rays of
+    the sorted wavefront walk the same subtrees. The reference's key, with
+    a stable argsort in place of its radix sort."""
+    octant = ((d[..., 0] < 0).to(torch.int32) * 4
+              + (d[..., 1] < 0).to(torch.int32) * 2
+              + (d[..., 2] < 0).to(torch.int32))
+    inf = torch.full_like(o, float("inf"))
+    lo = torch.where(alive[..., None], o, inf).amin(0)
+    hi = torch.where(alive[..., None], o, -inf).amax(0)
+    q = torch.clamp(((o - lo) / torch.clamp(hi - lo, min=1e-20) * 8.0)
+                    .to(torch.int32), 0, 7)
+
+    def spread3(v):
+        v = (v | (v << 4)) & 0x0C3
+        return (v | (v << 2)) & 0x249
+
+    morton = spread3(q[..., 0]) | (spread3(q[..., 1]) << 1) \
+        | (spread3(q[..., 2]) << 2)
+    key = torch.where(alive, octant * 512 + morton,
+                      torch.full_like(morton, 1 << 14))
+    return torch.argsort(key, stable=True)
 
 
 def _mesh_closest_hit(scene, o, d, t_best):
+    if scene.packed_octree is not None:
+        return okern.octree_intersect(o, d, t_best, scene.packed_octree)
     return mik.mesh_intersect(o.contiguous(), d.contiguous(),
-                              t_best.contiguous(), scene.mesh, scene.tri_mask)
+                              t_best.contiguous(), scene.mesh,
+                              scene.tri_mask)[:4]
 
 
 def scene_intersect_t(scene: Scene, o, d, t_max):
@@ -106,7 +151,7 @@ def scene_intersect_t(scene: Scene, o, d, t_max):
         type_best = torch.where(better, TYPE_SPHERE, type_best)
         idx_best = torch.where(better, j, idx_best)
     if scene.mesh is not None:
-        tm, ti, mb1, mb2, _ = _mesh_closest_hit(scene, o, d, t_best)
+        tm, ti, mb1, mb2 = _mesh_closest_hit(scene, o, d, t_best)
         better = tm < t_best
         t_best = torch.where(better, tm, t_best)
         type_best = torch.where(better, TYPE_MESH, type_best)
@@ -164,15 +209,25 @@ def scene_intersect(scene: Scene, o, d, t_max):
 
 
 def scene_anyhit(scene: Scene, o, d, t_max):
-    """Does anything intersect in (0, t_max)?"""
+    """Does anything intersect in (0, t_max)? The octree takes the rays in
+    packet order: sorted, traced and scattered back, which changes no
+    value (the reference sorts its incoherent shadow wavefronts)."""
     hit = torch.zeros(o.shape[:-1], dtype=torch.bool, device=o.device)
     if scene.spheres is not None:
         t_all = shp.sphere_intersect_t(o, d, t_max, scene.spheres)
         hit = hit | (t_all < t_max[..., None]).any(-1)
-    if scene.mesh is not None:
-        t_m = torch.where(hit, torch.zeros_like(t_max), t_max)
-        hit = hit | (_mesh_closest_hit(scene, o, d, t_m)[1] >= 0)
-    return hit
+    if scene.mesh is None:
+        return hit
+    t_m = torch.where(hit, torch.zeros_like(t_max), t_max)
+    if scene.packed_octree is None:
+        return hit | (_mesh_closest_hit(scene, o, d, t_m)[1] >= 0)
+    of, df, tf = o.reshape(-1, 3), d.reshape(-1, 3), t_m.reshape(-1)
+    order = _packet_order(of, df, tf > 0.0)
+    h = okern.octree_anyhit(of[order], df[order], tf[order],
+                            scene.packed_octree)
+    unsorted = torch.empty_like(h)
+    unsorted[order] = h
+    return hit | unsorted.reshape(t_m.shape)
 
 
 def scene_occluded(scene: Scene, p, wi, dist, eps, n):

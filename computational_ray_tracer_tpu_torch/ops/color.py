@@ -1,6 +1,7 @@
 """Colour science for the slice (``computational_ray_tracer_tpu/ops/
 color.py``): the sRGB colour space, sigmoid-polynomial spectra and the
-RGB -> sigmoid-coefficient fit.
+RGB -> sigmoid-coefficient fit, and the reference's precomputed sRGB
+coefficient table for textures.
 
 The fit is scene-build work on the host: a batched Levenberg-Marquardt solve
 in float32 over the same 5 nm quadrature as the reference. The reference
@@ -12,6 +13,7 @@ bits.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -158,3 +160,43 @@ def fit_rgb_to_spectrum(rgb, colorspace=SRGB, n_iter=40):
         c = torch.where(better[:, None], c_new, c)
         lm = torch.clamp(torch.where(better, lm * 0.5, lm * 4.0), 1e-8, 1e4)
     return c.reshape(shape)
+
+
+_TABLES = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class RGBToSpectrumTable:
+    """A (res, res, res, 3) grid of sigmoid coefficients over RGB,
+    trilinearly interpolated at lookup (the reference's
+    ``RGBToSpectrumTable``)."""
+    res: int
+    coeffs: torch.Tensor  # (res, res, res, 3)
+
+    @classmethod
+    def srgb(cls):
+        """The reference's shipped 64^3 sRGB table, read by path from its
+        data directory (no fitting)."""
+        if "srgb64" not in _TABLES:
+            path = os.path.join(data.DATA_DIR, "rgb2spec_srgb_64.npy")
+            coeffs = torch.as_tensor(np.load(path).astype(np.float32))
+            _TABLES["srgb64"] = cls(coeffs.shape[0], coeffs)
+        return _TABLES["srgb64"]
+
+    def lookup(self, rgb):
+        """Trilinear interpolation of the coefficients at rgb in [0, 1]^3
+        (rgb (..., 3) on the CPU, as the table is)."""
+        r = self.res
+        x = torch.clamp(rgb, 0.0, 1.0) * r - 0.5
+        i0 = torch.clamp(torch.floor(x).to(torch.int64), 0, r - 2)
+        w = torch.clamp(x - i0, 0.0, 1.0)
+        c = 0.0
+        for dx in (0, 1):
+            for dy in (0, 1):
+                for dz in (0, 1):
+                    wt = ((w[..., 0] if dx else 1 - w[..., 0])
+                          * (w[..., 1] if dy else 1 - w[..., 1])
+                          * (w[..., 2] if dz else 1 - w[..., 2]))
+                    c = c + wt[..., None] * self.coeffs[
+                        i0[..., 0] + dx, i0[..., 1] + dy, i0[..., 2] + dz]
+        return c

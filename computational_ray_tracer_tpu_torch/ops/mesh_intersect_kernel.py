@@ -30,35 +30,53 @@ from computational_ray_tracer_tpu_torch.ops.shapes import (
 
 LAUNCHES = 0
 
+# fp32 operations (add, sub, mul, div, min/max; comparisons not counted)
+# per ray/triangle pair of :func:`watertight`, per-ray set-up excluded:
+# translate 9, shear 12, three DifferenceOfProducts with their Dekker
+# splits 3 x 37, det 2, z scale 3, t_scaled 5, range product 1, 1/det 1,
+# t 1, error bound 28, barycentrics 2.
+PAIR_FLOPS = 175
+
 # Pairs (rays x triangles) per chunk of the plain version: bounds the
 # (F, rays) intermediates to a few hundred MB.
 _PLAIN_PAIRS_PER_CHUNK = 1 << 22
 
 
-def _closest_hit_tri_major(o, d, tm, tris, mask):
-    """Watertight test of rays (n,) against triangles (F,) as (F, n)
-    tensors; returns (t, idx, b1, b2), each (n,), with inf/-1/0/0 on a
-    miss and the lowest index among exact ties."""
-    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
-    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+def _perm(kz_x, kz_y, vx, vy, vz):
+    """Permute (x, y, z) so the ray's dominant axis comes last."""
+    pz = torch.where(kz_x, vx, torch.where(kz_y, vy, vz))
+    px = torch.where(kz_x, vy, torch.where(kz_y, vz, vx))
+    py = torch.where(kz_x, vz, torch.where(kz_y, vx, vy))
+    return px, py, pz
+
+
+def ray_shear(d):
+    """Per-ray set-up of the watertight test for directions d (..., 3):
+    (kz_x, kz_y, inv_dz, sx, sy), each d.shape[:-1]. kz is the first axis
+    of largest |d|; (kx, ky) follow it cyclically."""
+    dx, dy, dz = d.unbind(-1)
     adx, ady, adz = dx.abs(), dy.abs(), dz.abs()
     kz_x = (adx >= ady) & (adx >= adz)
     kz_y = (~kz_x) & (ady >= adz)
-
-    def perm(vx, vy, vz):
-        pz = torch.where(kz_x, vx, torch.where(kz_y, vy, vz))
-        px = torch.where(kz_x, vy, torch.where(kz_y, vz, vx))
-        py = torch.where(kz_x, vz, torch.where(kz_y, vx, vy))
-        return px, py, pz
-
-    dxp, dyp, dzp = perm(dx, dy, dz)
+    dxp, dyp, dzp = _perm(kz_x, kz_y, dx, dy, dz)
     inv_dz = 1.0 / dzp
-    sx = -dxp * inv_dz
-    sy = -dyp * inv_dz
+    return kz_x, kz_y, inv_dz, -dxp * inv_dz, -dyp * inv_dz
+
+
+def watertight(o, ray, tm, tri):
+    """The watertight ray/triangle test on broadcasting pairs: origins
+    ``o`` = (ox, oy, oz), ``ray`` = ray_shear(d), t_max ``tm`` and the
+    triangle's 9 vertex coordinates ``tri`` (p0 xyz, p1 xyz, p2 xyz) all
+    broadcast together. Translate, permute, shear, DifferenceOfProducts
+    edge functions (4097 split), sign-consistent range test and a
+    gamma-bounded t. Returns (t, b1, b2) with t = inf where the pair does
+    not hit. The CUDA kernels (csrc/watertight.cuh) do these float32
+    operations in this order."""
+    kz_x, kz_y, inv_dz, sx, sy = ray
 
     def sheared(k):
-        px, py, pz = perm(tris[3 * k][:, None] - ox, tris[3 * k + 1][:, None]
-                          - oy, tris[3 * k + 2][:, None] - oz)
+        px, py, pz = _perm(kz_x, kz_y, tri[3 * k] - o[0],
+                           tri[3 * k + 1] - o[1], tri[3 * k + 2] - o[2])
         return px + sx * pz, py + sy * pz, pz
 
     ax, ay, azp = sheared(0)
@@ -97,16 +115,24 @@ def _closest_hit_tri_major(o, d, tm, tris, mask):
     delta_t = 3.0 * (fp_gamma(3) * max_e * max_z + delta_e * max_z
                      + delta_z * max_e) * inv_det.abs()
     hit = same_side & nonzero & in_range & (t > delta_t)
-    if mask is not None:
-        hit = hit & mask[:, None]
-    t = torch.where(hit, t, torch.full_like(t, math.inf))
+    return (torch.where(hit, t, torch.full_like(t, math.inf)),
+            e1 * inv_det, e2 * inv_det)
 
+
+def _closest_hit_tri_major(o, d, tm, tris, mask):
+    """Watertight test of rays (n,) against triangles (F,) as (F, n)
+    tensors; returns (t, idx, b1, b2), each (n,), with inf/-1/0/0 on a
+    miss and the lowest index among exact ties."""
+    t, e1_det, e2_det = watertight(o.unbind(-1), ray_shear(d), tm,
+                                   [c[:, None] for c in tris])
+    if mask is not None:
+        t = torch.where(mask[:, None], t, torch.full_like(t, math.inf))
     j = torch.argmin(t, dim=0)                          # first of equal mins
     t_best = torch.gather(t, 0, j[None])[0]
     found = torch.isfinite(t_best)
     zero = torch.zeros_like(t_best)
-    b1 = torch.where(found, torch.gather(e1 * inv_det, 0, j[None])[0], zero)
-    b2 = torch.where(found, torch.gather(e2 * inv_det, 0, j[None])[0], zero)
+    b1 = torch.where(found, torch.gather(e1_det, 0, j[None])[0], zero)
+    b2 = torch.where(found, torch.gather(e2_det, 0, j[None])[0], zero)
     idx = torch.where(found, j, torch.full_like(j, -1)).to(torch.int32)
     return t_best, idx, b1, b2
 
@@ -133,7 +159,7 @@ def mesh_intersect_plain(o, d, t_max, tri_verts, tri_mask=None, chunk=None):
             b2.reshape(batch), count)
 
 
-def _check(name, x, shape, dtype, device):
+def check_tensor(name, x, shape, dtype, device):
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != dtype:
@@ -152,13 +178,13 @@ def _launch(o, d, t_max, tri_verts, tri_mask):
     dev = o.device
     n = o.numel() // 3
     f = tri_verts.shape[1]
-    _check("o", o, (n, 3), torch.float32, dev)
-    _check("d", d, (n, 3), torch.float32, dev)
-    _check("t_max", t_max, (n,), torch.float32, dev)
-    _check("tri_verts", tri_verts, (9, f), torch.float32, dev)
+    check_tensor("o", o, (n, 3), torch.float32, dev)
+    check_tensor("d", d, (n, 3), torch.float32, dev)
+    check_tensor("t_max", t_max, (n,), torch.float32, dev)
+    check_tensor("tri_verts", tri_verts, (9, f), torch.float32, dev)
     mask_ptr = None
     if tri_mask is not None:
-        _check("tri_mask", tri_mask, (f,), torch.float32, dev)
+        check_tensor("tri_mask", tri_mask, (f,), torch.float32, dev)
         mask_ptr = tri_mask.data_ptr()
     lib = build.load_library()
     t = torch.empty(n, dtype=torch.float32, device=dev)

@@ -50,13 +50,19 @@ def export_scene(scene):
         a["mesh_tri_mat"] = np.asarray(scene.mesh_tri_mat)
         a["tri_mask"] = (None if scene.tri_mask is None
                          else np.asarray(scene.tri_mask))
+    if scene.octree is not None:
+        for k in convert.OCTREE_FIELDS:
+            a["octree." + k] = np.asarray(getattr(scene.octree, k))
+    if scene.texture is not None:
+        a["texture"] = np.asarray(scene.texture)
     return a
 
 
 @pytest.fixture(scope="module")
 def cornell32():
     scene, camera, cfg = _cornell_setup(res=32, spp=2, use_pallas=True)
-    return scene, camera, cfg, convert.scene_from_numpy(export_scene(scene))
+    return scene, camera, cfg, convert.scene_from_numpy(export_scene(scene),
+                                                        device="cpu")
 
 
 @pytest.mark.parametrize("sample_idx", [0, 1])
@@ -68,7 +74,7 @@ def test_render_pass_matches_jax(cornell32, sample_idx):
     f, s = jinteg.make_filter(jcfg), jinteg.make_sensor(jcfg)
     rj, wj = jax.jit(lambda sc, i: jinteg.render_pass(
         sc, jcamera, jcfg, f, s, i))(jscene, jnp.uint32(sample_idx))
-    _, tcamera, tcfg = entry.cornell_setup(res=32, spp=2)
+    _, tcamera, tcfg = entry.cornell_setup(res=32, spp=2, device="cpu")
     rt, wt = tinteg.render_pass(tscene, tcamera, tcfg,
                                 tinteg.make_filter(),
                                 tsen.PixelSensor.create(), sample_idx)
@@ -97,7 +103,8 @@ def _golden4_spectral():
                  "spd_dense": bb, "scale": 0.5}],
         spheres=[{"radius": 0.8, "material": i,
                   "transform": tshp.make_transform((x, 0, 0))}
-                 for i, x in enumerate((-1.8, 0.0, 1.8))])
+                 for i, x in enumerate((-1.8, 0.0, 1.8))],
+        device="cpu")
     camera = tcam.PerspectiveCamera.create((0, 0.8, -4.5), (32, 32),
                                            fov_y=45.0, look_at=(0, 0, 0))
     cfg = tinteg.RenderConfig(
@@ -106,23 +113,32 @@ def _golden4_spectral():
     return scene, camera, cfg
 
 
-@pytest.mark.parametrize("name", ["config2_cornell_path", "config4_spectral"])
+GOLDEN_SETUPS = {
+    "config2_cornell_path":
+        lambda: entry.golden2_cornell_path(res=32, spp=4, device="cpu"),
+    "config3_mesh_octree_textured":
+        lambda: entry.golden3_mesh_octree_textured(res=32, spp=2,
+                                                   device="cpu"),
+    "config4_spectral": _golden4_spectral,
+}
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN_SETUPS))
 def test_render_matches_golden(name):
     """The port's own Scene.build + render() against a checked-in golden at
     the golden test's tolerance."""
-    scene, camera, cfg = (entry.golden2_cornell_path(res=32, spp=4)
-                          if name == "config2_cornell_path"
-                          else _golden4_spectral())
+    scene, camera, cfg = GOLDEN_SETUPS[name]()
     film, sensor = tinteg.render(scene, camera, cfg, chunk=cfg.sampler.spp)
     img = film.resolve(sensor, to_srgb=False, clip=False).numpy()
-    assert np.isfinite(img).all() and film.spp_done == 4
+    assert np.isfinite(img).all() and film.spp_done == cfg.sampler.spp
     golden = np.load(os.path.join(GOLDEN_DIR, name + ".npy"))
     np.testing.assert_allclose(img, golden,
                                atol=2e-3 * max(float(golden.max()), 1e-3))
 
 
 def test_render_resume_and_chunks_agree():
-    scene, camera, cfg = entry.golden2_cornell_path(res=16, spp=4)
+    scene, camera, cfg = entry.golden2_cornell_path(res=16, spp=4,
+                                                    device="cpu")
     a, _ = tinteg.render(scene, camera, cfg, chunk=4)
     b, _ = tinteg.render(scene, camera, cfg, passes=2)
     b, _ = tinteg.render(scene, camera, cfg, film=b)
@@ -135,7 +151,7 @@ def test_scene_build_matches_reference(cornell32):
     """Scene.build in the port vs the reference (LM fit may differ in the
     last bits, so coefficients within 2e-3 and emission within 1e-4)."""
     jscene, *_ = cornell32
-    tscene, _, _ = entry.cornell_setup(res=32, spp=2)
+    tscene, _, _ = entry.cornell_setup(res=32, spp=2, device="cpu")
     jm, tm = jscene.materials, tscene.materials
     np.testing.assert_array_equal(tm.kind.numpy(), np.asarray(jm.kind))
     np.testing.assert_allclose(tm.albedo_coeffs.numpy(),
@@ -253,14 +269,11 @@ def test_lights_all_kinds_match():
 
 
 def test_unported_options_raise():
-    scene, camera, cfg = entry.cornell_setup(8, 1)
-    with pytest.raises(NotImplementedError, match="octree"):
-        Scene.build(materials=entry.CORNELL_MATERIALS,
-                    lights=[{"kind": "ambient"}], mesh=scene.mesh)
+    scene, camera, cfg = entry.cornell_setup(8, 1, device="cpu")
     with pytest.raises(NotImplementedError):
         tinteg.SamplerConfig(kind="stratified")
-    for change in ({"compact": True}, {"integrator": "direct"},
-                   {"integrator": "simple"}, {"integrator": "walk"}):
+    for change in ({"compact": True}, {"integrator": "simple"},
+                   {"integrator": "walk"}):
         with pytest.raises(NotImplementedError):
             dataclasses.replace(cfg, **change)
 
