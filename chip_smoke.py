@@ -32,14 +32,41 @@ failed check raises, so the script exits non-zero:
 7. the mesh headline: entry.mesh327k_setup(512, spp 4) through render();
    image checks, seconds per pass and rays/s (2 rays per sample), with the
    launch counts of each kernel mode in that run;
-8. a JSON line of the kernels (CUDA-event medians: of 5 for the kernels,
+8. the flagship (entry.flagship_setup on phase 5's scene: textured,
+   thin lens, stratified 2x2, path/MIS depth 4): one 512x512 pass through
+   render_pass_compact (alive rays only from depth 1) against the
+   full-wavefront render_pass that render() runs, at rtol 1e-4 / atol
+   1e-5, with the alive counts per depth, capturing the interpolation
+   kernel's inputs of that pass;
+9. the interpolation kernel vs its plain version on the card, bitwise, on
+   (a) the flagship pass's spectral-cache call (C = 5), (b) its sensor
+   call (C = 3), (c) a seeded 471 x 128 table at 2^21 rows with w exactly
+   0 and 1 on some rows; both times, the bound, and the time of
+   torch.nn.functional.grid_sample on the same inputs (the yardstick;
+   the port never calls it);
+10. the flagship render: render() over spp 4 after one warm-up pass;
+   seconds per pass, rays/s (1 + (D-1) + D rays per sample), launches of
+   the interpolation kernel and both octree modes, image checks (finite,
+   mean inside a band from a CPU render);
+11. deep512 (entry.deep512_setup on phase 5's scene, path/MIS depth 8):
+   one warm-up pass, then three passes at spp 4; seconds
+   per pass, rays/s at 16 rays per sample, launches; then one compacted
+   pass against the full wavefront as in phase 8, with its alive counts;
+12. the canonical frame (entry.canonical_scene on phase 5's dragon
+   stand-in: x5, cap 40, backface culling): set-up times and tree shape;
+   the 64x64 spp 4 render against tests/golden/canonical_64.npy at
+   atol 2e-3*max; the 500x500 spp 100 frame, seconds per pass and rays/s
+   (1 ray per sample);
+13. a JSON line of the kernels (CUDA-event medians: of 5 for the kernels,
    of 3 for the plain traversal and the brute kernel at full mesh size;
-   errors; launches; the bound: the least time the card could take for
-   the same work, from the counted fp32 operations at 67 TFLOP/s and the
-   bytes at 3.35 TB/s), then the JSON result line.
+   the interpolation kernel and grid_sample timed over runs of 20
+   launches; errors; launches; the bound: the least time the card could
+   take for the same work, from the counted fp32 operations at 67 TFLOP/s
+   and the bytes at 3.35 TB/s), then the JSON result line.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -49,11 +76,13 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from computational_ray_tracer_tpu_torch import entry
 from computational_ray_tracer_tpu_torch.kernels import build
 from computational_ray_tracer_tpu_torch.models import integrator as integ
 from computational_ray_tracer_tpu_torch.ops import camera as cam
+from computational_ray_tracer_tpu_torch.ops import interp_kernel as ik
 from computational_ray_tracer_tpu_torch.ops import mesh_intersect_kernel as mik
 from computational_ray_tracer_tpu_torch.ops import octree as octmod
 from computational_ray_tracer_tpu_torch.ops import octree_kernel as okern
@@ -68,6 +97,11 @@ MESH_SPP = 4
 # Image mean band of the mesh headline: a CPU render of the same scene at
 # 48x48, spp 2 (the plain traversal) has mean 0.3875; +-20%.
 MESH_MEAN_BAND = (0.31, 0.47)
+# Image mean band of the flagship: a CPU render of the same scene at 48x48,
+# spp 4 (the plain kernels) has mean 0.4874; +-20%.
+FLAGSHIP_MEAN_BAND = (0.39, 0.585)
+DEEP_SPP = 4                # deep512's timed passes, as bench.py's
+CANONICAL_RES, CANONICAL_SPP = 500, 100
 PLAIN_BUDGET_S = 60.0       # the plain traversal runs on all rays if
 PLAIN_SUBSET = 65536        # a subset of this size predicts it fits
 FP32_FLOPS = 67e12          # H100 SXM, outside the tensor cores
@@ -88,6 +122,18 @@ def median_ms(fn, reps=5, warm=True):
         fn()
         torch.cuda.synchronize()
     return statistics.median(timed(fn)[1] for _ in range(reps))
+
+
+def per_launch_ms(fn, reps=5, inner=20):
+    """Median over ``reps`` of the CUDA-event time of ``inner`` calls, per
+    call (for kernels of tens of microseconds)."""
+    def run():
+        for _ in range(inner):
+            fn()
+
+    fn()
+    torch.cuda.synchronize()
+    return statistics.median(timed(run)[1] / inner for _ in range(reps))
 
 
 def timed(fn):
@@ -291,7 +337,7 @@ def octree_phase(dev):
         flush=True)
 
     # (a) closest hit vs the plain traversal on the camera wavefront
-    _, _, _, o, d = integ.camera_wavefront(camera, cfg, integ.make_filter(),
+    _, _, _, o, d = integ.camera_wavefront(camera, cfg, integ.make_filter(cfg),
                                            0, dev)
     o, d = o.contiguous(), d.contiguous()
     n = o.shape[0]
@@ -335,7 +381,7 @@ def octree_phase(dev):
     shadow = []
     with wrapped(okern, "octree_anyhit",
                  before=lambda *a: shadow.append([x.clone() for x in a[:3]])):
-        integ.render_pass(scene, camera, cfg, integ.make_filter(),
+        integ.render_pass(scene, camera, cfg, integ.make_filter(cfg),
                           sen.PixelSensor.create(), 0)
     assert len(shadow) == 1, f"{len(shadow)} any-hit calls in a direct pass"
     so, sd, st = shadow[0]
@@ -366,7 +412,7 @@ def octree_phase(dev):
     dpacked = okern.pack_from_numpy(dtree, dmesh)
     dcam = cam.PerspectiveCamera.create((0, 12, -52), (HEADLINE_RES,) * 2,
                                         fov_y=45.0, look_at=(0, -1, 0))
-    _, _, _, do, dd = integ.camera_wavefront(dcam, cfg, integ.make_filter(),
+    _, _, _, do, dd = integ.camera_wavefront(dcam, cfg, integ.make_filter(cfg),
                                              0, dev)
     do, dd = do.contiguous(), dd.contiguous()
     kern_d = lambda: okern.octree_intersect(do, dd, t_inf, dpacked)
@@ -386,7 +432,159 @@ def octree_phase(dev):
                  / 1e6, **counters(tests, pops))
     print("phase5d", json.dumps(row_d), flush=True)
     del dpacked, dmesh
-    return scene, camera, cfg, row_a, row_c
+    return scene, camera, cfg, row_a, row_c, (v, f, uv)
+
+
+def interp_bound(n, k, c):
+    """Bound of one interpolation launch: i0 and w (8 bytes a row), the
+    (n, c) output and the table once; ik.ELEMENT_FLOPS per output."""
+    return bound(n * c * ik.ELEMENT_FLOPS, 8 * n + 4 * n * c + 4 * k * c)
+
+
+def interp_case(name, tables, i0, w):
+    """The interpolation kernel (through its wrapper) vs its plain version
+    on the same card tensors: raises unless bitwise equal. Times both and
+    grid_sample computing the same lerp: the table as a (1, C, 1, K) image
+    sampled at x = i0 + w with align_corners=True."""
+    k, c = tables.shape
+    n = i0.shape[0]
+    launches0 = ik.LAUNCHES
+    out = ik.dense_interp(tables, i0, w)
+    plain = ik.dense_interp_plain(tables, i0, w)
+    torch.cuda.synchronize()
+    assert ik.LAUNCHES == launches0 + 1, f"{name}: the kernel did not launch"
+    bitwise = torch.equal(out, plain)
+    err = (out - plain).abs().max().item()
+    assert bitwise, f"{name}: interpolation kernel differs by {err}"
+    img = tables.T.contiguous().reshape(1, c, 1, k)
+    x = (i0.to(torch.float32) + w) * (2.0 / (k - 1)) - 1.0
+    grid = torch.stack([x, torch.zeros_like(x)], -1).reshape(1, 1, n, 2)
+    lib = lambda: F.grid_sample(img, grid, mode="bilinear",
+                                padding_mode="zeros", align_corners=True)
+    lib_err = (lib()[0, :, 0].T - out).abs().max().item()
+    bound_ms, bound_by = interp_bound(n, k, c)
+    row = {"case": name, "rows": n, "k": k, "c": c, "bitwise": bitwise,
+           "max_abs_err": err,
+           "w_exact_0_1": int(((w == 0) | (w == 1)).sum()),
+           "ms": per_launch_ms(lambda: ik.dense_interp(tables, i0, w)),
+           "plain_ms": per_launch_ms(
+               lambda: ik.dense_interp_plain(tables, i0, w)),
+           "library_ms": per_launch_ms(lib),
+           "library_max_abs_diff": lib_err,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    row["share_of_bound"] = bound_ms / row["ms"]
+    print("phase9", json.dumps(row), flush=True)
+    return row
+
+
+def compact_vs_full(phase, scene, camera, cfg, sample_idx):
+    """One render_pass_compact pass against the full-wavefront render_pass
+    on the card at rtol 1e-4 / atol 1e-5 (tests/test_compaction.py);
+    returns (the interpolation kernel's (tables, i0, w) in the compacted
+    pass, the first call of each width; the row to print)."""
+    flt = integ.make_filter(cfg)
+    sensor = sen.PixelSensor.create()
+    calls = {}
+
+    def keep(tables, i0, w):
+        if tables.shape[1] not in calls:
+            calls[tables.shape[1]] = (tables.clone(), i0.clone(), w.clone())
+
+    counts = []
+    with wrapped(ik, "dense_interp", before=keep):
+        rgb_c, wt_c = integ.render_pass_compact(scene, camera, cfg, flt,
+                                                sensor, sample_idx, counts)
+    rgb_f, wt_f = integ.render_pass(scene, camera, cfg, flt, sensor,
+                                    sample_idx)
+    torch.testing.assert_close(wt_c, wt_f, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(rgb_c, rgb_f, rtol=1e-4, atol=1e-5)
+    n = cfg.resolution[0] * cfg.resolution[1]
+    assert counts[0] == n and min(counts) < n, \
+        f"{phase}: alive counts {counts}"
+    return calls, {
+        "res": cfg.resolution[0], "depth": cfg.max_depth,
+        "alive_counts": counts,
+        "compact_vs_full_max_abs_diff": (rgb_c - rgb_f).abs().max().item(),
+        "rtol": 1e-4, "atol": 1e-5, "image_max": rgb_f.max().item()}
+
+
+def timed_render(phase, scene, camera, cfg, rays_per_sample, card, film=None,
+                 warm=True):
+    """One warm-up pass (unless ``film`` resumes a render), then render()
+    with every launch count at 0; returns (film, sensor, row)."""
+    if warm:
+        integ.render(scene, camera, cfg, passes=1)
+    torch.cuda.synchronize()
+    ik.LAUNCHES = okern.LAUNCHES_CLOSEST = okern.LAUNCHES_ANYHIT = 0
+    start = 0 if film is None else film.spp_done
+    t0 = time.perf_counter()
+    film, sensor = integ.render(scene, camera, cfg, film=film)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    passes = film.spp_done - start
+    launches = {"interp": ik.LAUNCHES, "closest": okern.LAUNCHES_CLOSEST,
+                "anyhit": okern.LAUNCHES_ANYHIT}
+    assert min(launches.values()) > 0, f"{phase} launched {launches}"
+    w, h = cfg.resolution
+    row = {"res": w, "depth": cfg.max_depth, "passes": passes,
+           "s_per_pass": dt / passes,
+           "rays_per_s": w * h * rays_per_sample * passes / dt,
+           "launches": launches, "card": card}
+    return film, sensor, row
+
+
+def canonical_phase(dragon, dev, card):
+    """Phase 12; returns the launch counts of the 500x500 render."""
+    times = {}
+    keep = lambda key: lambda s: times.__setitem__(key, s)
+    t0 = time.perf_counter()
+    with wrapped(octmod, "build_octree", after=keep("build_octree_s")), \
+            wrapped(okern, "pack_from_numpy", after=keep("pack_upload_s")):
+        c_scene = entry.canonical_scene(40, mesh=dragon, device=dev)
+    torch.cuda.synchronize()
+    times["setup_s"] = time.perf_counter() - t0
+    packed = c_scene.packed_octree
+    print("phase12_setup", json.dumps({
+        **times, "octree": c_scene.octree.info(), "depth": packed.depth,
+        "triangles": c_scene.mesh.n_triangles,
+        "kept_by_backface_cull": int(c_scene.tri_mask.sum()),
+        "leaf_table_mb": packed.leaf_verts.numel() * 4 / 1e6}), flush=True)
+
+    ik.LAUNCHES = okern.LAUNCHES_CLOSEST = 0
+    img64, _ = entry.canonical_render(64, 4, scene=c_scene)
+    img64 = img64.cpu().numpy()
+    golden = np.load(os.path.join(ROOT, "tests", "golden",
+                                  "canonical_64.npy"))
+    atol = 2e-3 * max(float(golden.max()), 1e-3)
+    g_err = float(np.abs(img64 - golden).max())
+    assert np.isfinite(img64).all() and g_err <= atol, \
+        f"canonical golden max |diff| {g_err} > atol {atol}"
+    assert ik.LAUNCHES > 0 and okern.LAUNCHES_CLOSEST > 0
+    print("phase12_golden", json.dumps({
+        "golden": "canonical_64", "max_abs_diff": g_err, "atol": atol,
+        "launches_interp": ik.LAUNCHES,
+        "launches_closest": okern.LAUNCHES_CLOSEST}), flush=True)
+
+    camera, cfg = entry.canonical_view(CANONICAL_RES, CANONICAL_SPP)
+    entry.canonical_pass(c_scene, camera, cfg, sen.PixelSensor.create(), 0)
+    torch.cuda.synchronize()
+    ik.LAUNCHES = okern.LAUNCHES_CLOSEST = okern.LAUNCHES_ANYHIT = 0
+    t0 = time.perf_counter()
+    img, _ = entry.canonical_render(CANONICAL_RES, CANONICAL_SPP,
+                                    scene=c_scene)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"interp": ik.LAUNCHES, "closest": okern.LAUNCHES_CLOSEST,
+                "anyhit": okern.LAUNCHES_ANYHIT}
+    assert launches["interp"] > 0 and launches["closest"] > 0, launches
+    img = img.cpu().numpy()
+    mean = float(img.mean())
+    assert np.isfinite(img).all() and mean > 0.01, f"canonical mean {mean}"
+    print("phase12", json.dumps({
+        "res": CANONICAL_RES, "spp": CANONICAL_SPP,
+        "s_per_pass": dt / CANONICAL_SPP,
+        "rays_per_s": CANONICAL_RES ** 2 * CANONICAL_SPP / dt,
+        "launches": launches, "image_mean": mean, "card": card}), flush=True)
 
 
 def main():
@@ -413,7 +611,7 @@ def main():
     # phase 2
     scene, camera, cfg = entry.cornell_setup(HEADLINE_RES, HEADLINE_SPP, dev)
     _, _, _, o, d = integ.camera_wavefront(
-        camera, cfg, integ.make_filter(), 0, dev)
+        camera, cfg, integ.make_filter(cfg), 0, dev)
     t_inf = torch.full((o.shape[0],), float("inf"), device=dev)
     rows = [compare("cornell_camera", o.contiguous(), d.contiguous(), t_inf,
                     scene.mesh, None)]
@@ -433,13 +631,14 @@ def main():
     # phase 4: one warm-up pass, then the timed Cornell headline render
     integ.render(scene, camera, cfg, passes=1)
     torch.cuda.synchronize()
-    mik.LAUNCHES = 0
+    mik.LAUNCHES = ik.LAUNCHES = 0
     t0 = time.perf_counter()
     film, sensor = integ.render(scene, camera, cfg, chunk=HEADLINE_SPP)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = mik.LAUNCHES
-    assert launches > 0, "the headline render never launched the kernel"
+    launches, c_interp = mik.LAUNCHES, ik.LAUNCHES
+    assert launches > 0 and c_interp > 0, \
+        f"the headline render launched the kernels {launches}, {c_interp}"
     img = film.resolve(sensor).cpu().numpy()
     mean, left, right = image_checks(img)
     depth = cfg.max_depth
@@ -448,12 +647,14 @@ def main():
     print("phase4", json.dumps({
         "res": HEADLINE_RES, "spp": HEADLINE_SPP, "depth": depth,
         "s_per_pass": dt / HEADLINE_SPP, "rays_per_s": rays / dt,
-        "launches": launches, "image_mean": mean, "left_wall": left,
+        "launches": launches, "launches_interp": c_interp,
+        "image_mean": mean, "left_wall": left,
         "right_wall": right, "card": card}), flush=True)
     del scene, film, mesh_s, o_s, d_s
 
     # phase 5
-    m_scene, m_camera, m_cfg, row_closest, row_any = octree_phase(dev)
+    m_scene, m_camera, m_cfg, row_closest, row_any, dragon = octree_phase(
+        dev)
 
     # phase 6
     before = (okern.LAUNCHES_CLOSEST, okern.LAUNCHES_ANYHIT)
@@ -469,13 +670,15 @@ def main():
     # phase 7: one warm-up pass, then the timed mesh headline render
     integ.render(m_scene, m_camera, m_cfg, passes=1)
     torch.cuda.synchronize()
-    okern.LAUNCHES_CLOSEST = okern.LAUNCHES_ANYHIT = 0
+    okern.LAUNCHES_CLOSEST = okern.LAUNCHES_ANYHIT = ik.LAUNCHES = 0
     t0 = time.perf_counter()
     film, sensor = integ.render(m_scene, m_camera, m_cfg)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     m_launches = (okern.LAUNCHES_CLOSEST, okern.LAUNCHES_ANYHIT)
-    assert min(m_launches) > 0, f"mesh headline launched {m_launches}"
+    m_interp = ik.LAUNCHES
+    assert min(m_launches) > 0 and m_interp > 0, \
+        f"mesh headline launched {m_launches}, interp {m_interp}"
     img = film.resolve(sensor).cpu().numpy()
     h, w, _ = img.shape
     centre = img[int(0.45 * h):int(0.55 * h), int(0.45 * w):int(0.55 * w)]
@@ -491,10 +694,64 @@ def main():
         "s_per_pass": dt / MESH_SPP,
         "rays_per_s": HEADLINE_RES * HEADLINE_RES * 2 * MESH_SPP / dt,
         "launches_closest": m_launches[0], "launches_anyhit": m_launches[1],
+        "launches_interp": m_interp,
         "image_mean": m_mean, "centre_mean": float(centre.mean()),
         "card": card}), flush=True)
 
-    # phase 8
+    # phase 8: the flagship's compacted pass vs its full wavefront
+    f_scene, f_camera, f_cfg = entry.flagship_setup(
+        HEADLINE_RES, MESH_SPP, scene=m_scene, device=dev)
+    calls, row = compact_vs_full("phase8", f_scene, f_camera, f_cfg, 0)
+    assert sorted(calls) == [3, 5], f"interp calls of widths {sorted(calls)}"
+    print("phase8", json.dumps(row), flush=True)
+
+    # phase 9: the interpolation kernel at its three shapes
+    gen = np.random.default_rng(0)
+    n_stress = 1 << 21
+    w_stress = gen.uniform(0, 1, n_stress).astype(np.float32)
+    w_stress[:1000] = 0.0
+    w_stress[1000:2000] = 1.0
+    t = lambda a: torch.as_tensor(a, device=dev)
+    interp_rows = [
+        interp_case("a_flagship_spectral_cache", *calls[5]),
+        interp_case("b_flagship_sensor", *calls[3]),
+        interp_case("c_seeded_471x128", t(gen.normal(size=(471, 128)).astype(
+            np.float32)), t(gen.integers(0, 470, n_stress).astype(np.int32)),
+            t(w_stress))]
+    del calls
+
+    # phase 10: the flagship render
+    film, sensor, row = timed_render("phase10", f_scene, f_camera, f_cfg,
+                                     1 + (f_cfg.max_depth - 1)
+                                     + f_cfg.max_depth, card)
+    f_launches = row["launches"]
+    img = film.resolve(sensor).cpu().numpy()
+    f_mean = float(img.mean())
+    assert np.isfinite(img).all(), "non-finite flagship pixels"
+    assert FLAGSHIP_MEAN_BAND[0] < f_mean < FLAGSHIP_MEAN_BAND[1], \
+        f"flagship image mean {f_mean} outside {FLAGSHIP_MEAN_BAND}"
+    print("phase10", json.dumps({**row, "spp": f_cfg.sampler.spp,
+                                 "image_mean": f_mean}), flush=True)
+    del f_scene, film
+
+    # phase 11: deep512, one warm-up pass at spp 2, then passes 1-3 of 4
+    d_scene, d_camera, d_cfg = entry.deep512_setup(scene=m_scene, device=dev)
+    film, _ = integ.render(d_scene, d_camera, d_cfg, passes=1)
+    d_cfg = dataclasses.replace(d_cfg, sampler=dataclasses.replace(
+        d_cfg.sampler, spp=DEEP_SPP))
+    film, sensor, row = timed_render("phase11", d_scene, d_camera, d_cfg,
+                                     16, card, film=film, warm=False)
+    img = film.resolve(sensor).cpu().numpy()
+    assert np.isfinite(img).all(), "non-finite deep512 pixels"
+    _, c_row = compact_vs_full("phase11", d_scene, d_camera, d_cfg, 0)
+    print("phase11", json.dumps({**row, "image_mean": float(img.mean()),
+                                 "compacted_pass": c_row}), flush=True)
+    del m_scene, d_scene, film
+
+    # phase 12: the canonical frame
+    canonical_phase(dragon, dev, card)
+
+    # phase 13
     cam_row = rows[0]
     kernel = lambda name, src, replaces, n, r, err: {
         "name": name, "route": "cuda", "source": PKG + src,
@@ -511,7 +768,12 @@ def main():
                max(row_closest["t_abs_err_max"],
                    row_closest["b_abs_err_max"])),
         kernel("octree_anyhit", "octree_traverse.cu", octree_src,
-               m_launches[1], row_any, 0.0)]}), flush=True)
+               m_launches[1], row_any, 0.0),
+        {**kernel("dense_interp", "dense_interp.cu",
+                  "computational_ray_tracer_tpu/ops/pallas_interp.py:36",
+                  f_launches["interp"], interp_rows[0],
+                  max(r["max_abs_err"] for r in interp_rows)),
+         "library_ms": interp_rows[0]["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,11 +8,18 @@ decision is a pure function of (seed, pixel, sample, dim) through the
 counter-based samplers, so values match the reference's for the same
 inputs. Sampling decisions are detached.
 
-The ``path`` (MIS) and ``direct`` integrators are ported; ``simple`` and
-``walk``, the ``stratified`` and ``sobol_global`` samplers, and
-``compact=True`` raise until their ROADMAP Queue 1 items land. The
-reference's default gaussian filter and XYZ sensor are the only ones
-ported, so they are not options here.
+The ``path`` (MIS) and ``direct`` integrators and the ``independent``,
+``sobol`` and ``stratified`` samplers are ported; ``simple`` and ``walk``
+and the ``sobol_global`` sampler raise until their ROADMAP items land. The
+filter is ``cfg.filter_name`` (box, triangle or gaussian); the sensor is the
+reference's default XYZ sensor.
+
+``render_pass_compact`` bounces only the alive rays from depth 1 on. Every
+sample is keyed by (pixel, sample, dim) and a dead ray's state no longer
+changes, so its image is the full wavefront's. ``render()`` runs the full
+wavefront: on the H100 each eager bounce is bound by its kernel launches,
+so gathering the alive rays only adds launches and a sync
+(``tools/compare_compaction.py``, PERF.md).
 """
 
 from __future__ import annotations
@@ -30,37 +37,45 @@ from computational_ray_tracer_tpu_torch.ops.montecarlo import power_heuristic
 from computational_ray_tracer_tpu_torch.models import materials as mat
 from computational_ray_tracer_tpu_torch.models import lights as lgt
 from computational_ray_tracer_tpu_torch.models.scene import (
-    scene_intersect, scene_occluded, texture_lookup)
+    _packet_order, scene_intersect, scene_occluded, texture_lookup)
 
 DIM_LAMBDA = 0
 DIM_FILTER = 1      # 2D
 DIM_LENS = 3        # 2D
 DIM_BOUNCE0 = 5
 DIMS_PER_BOUNCE = 8  # bsdf 2D + bsdf 1D + light select + light pos 2D + rr
-FILTER_RADIUS = (0.5, 0.5)
 
 
 @dataclasses.dataclass(frozen=True)
 class SamplerConfig:
-    """Pixel sampler: ``sobol`` (Owen-scrambled, padded per pixel) or
+    """Pixel sampler: ``sobol`` (Owen-scrambled, padded per pixel),
+    ``stratified`` (an xs x ys grid, spp = xs * ys, jittered) or
     ``independent``."""
     kind: str = "independent"
     spp: int = 16
+    xs: int = 4
+    ys: int = 4
     seed: int = 0
 
     def __post_init__(self):
-        if self.kind not in ("sobol", "independent"):
+        if self.kind not in ("sobol", "independent", "stratified"):
             raise NotImplementedError(
                 f"sampler kind {self.kind!r} is not ported yet "
-                "(ROADMAP Queue 1 item 2)")
+                "(ROADMAP Queue 1)")
 
     def get_1d(self, pixel, sample_idx, dim):
+        if self.kind == "stratified":
+            return rng.stratified_1d(self.seed, pixel, sample_idx, dim,
+                                     self.spp)
         if self.kind == "sobol":
             return rng.sobol_owen_1d(self.seed, pixel, sample_idx, dim,
                                      spp=self.spp)
         return rng.independent_1d(self.seed, pixel, sample_idx, dim)
 
     def get_2d(self, pixel, sample_idx, dim):
+        if self.kind == "stratified":
+            return rng.stratified_2d(self.seed, pixel, sample_idx, dim,
+                                     self.xs, self.ys)
         if self.kind == "sobol":
             return rng.sobol_owen_2d(self.seed, pixel, sample_idx, dim,
                                      spp=self.spp)
@@ -75,16 +90,16 @@ class RenderConfig:
     max_depth: int = 5
     rr_start: int = 3                       # Russian roulette from here
     ray_eps_scale: float = 3e-5             # spawn offset / (|p| + t)
-    compact: bool = False                   # not ported: raises
+    filter_name: str = "gaussian"           # box | triangle | gaussian
 
     def __post_init__(self):
         if self.integrator not in ("path", "direct"):
             raise NotImplementedError(
                 f"integrator {self.integrator!r} is not ported yet "
-                "(ROADMAP Queue 1 item 8)")
-        if self.compact:
-            raise NotImplementedError("compact=True is not ported yet "
-                                      "(ROADMAP Queue 1 item 10)")
+                "(ROADMAP Queue 1)")
+        if self.filter_name not in flt.FILTERS:
+            raise NotImplementedError(
+                f"filter {self.filter_name!r} is not ported yet")
 
 
 def spawn_eps(si, cfg: RenderConfig):
@@ -99,7 +114,7 @@ def _spectral_cache(scene, lam):
     (..., S, L + 3M) ordered [lights.spd | emission | eta | k]."""
     stack = torch.cat([scene.lights.spd, scene.materials.emission,
                        scene.materials.eta, scene.materials.k], dim=0)
-    return spec.sample_dense_multi(stack.T.contiguous(), lam)
+    return spec.sample_dense_multi(stack.T, lam)
 
 
 def _cache_select(vals, idx):
@@ -285,10 +300,10 @@ def _path_scan(scene, o, d, wl, pixel, sample_idx, cfg):
     return state["L"], spec.SampledWavelengths(wl.lam, state["lam_pdf"])
 
 
-def make_filter():
-    """The reference RenderConfig's default filter, the only one ported:
-    gaussian, radius 0.5 pixel."""
-    return flt.gaussian_filter(FILTER_RADIUS)
+def make_filter(cfg: RenderConfig):
+    """The config's reconstruction filter, at the radius (0.5, 0.5) of
+    every workload (the reference's default)."""
+    return flt.FILTERS[cfg.filter_name]((0.5, 0.5))
 
 
 def camera_wavefront(camera, cfg: RenderConfig, filter_obj, sample_idx,
@@ -325,6 +340,51 @@ def render_pass(scene, camera, cfg: RenderConfig, filter_obj, sensor,
     return rgb.reshape(h, w, 3), fw.reshape(h, w)
 
 
+# State entries a bounce changes; lam and svals are per-ray constants.
+_BOUNCE_KEYS = ("o", "d", "beta", "L", "alive", "specular", "pdf_prev",
+                "n_prev", "lam_pdf")
+
+
+def render_pass_compact(scene, camera, cfg: RenderConfig, filter_obj, sensor,
+                        sample_idx, alive_counts=None):
+    """One path/MIS pass with between-bounce compaction: the same (rgb,
+    weight) as :func:`render_pass`.
+
+    Each bounce reads the exact alive count back (one host sync). Depth 0
+    bounces the camera wavefront in launch order: a thin-lens camera's
+    origins would sort into noise. From depth 1 on the alive rays are
+    ordered by ``scene._packet_order`` (direction octant, Morton cell of the
+    origin), gathered, bounced and scattered back, so the state stays in
+    launch order and row r is pixel r when the film is assembled. A dead
+    ray's state no longer changes in a bounce, so skipping it changes no
+    value. ``alive_counts``, a list, receives the count at each depth."""
+    if cfg.integrator == "direct":
+        raise ValueError("compaction needs a multi-bounce integrator")
+    w, h = cfg.resolution
+    sample_idx = int(sample_idx)
+    pixel, wl, fw, o, d = camera_wavefront(camera, cfg, filter_obj,
+                                           sample_idx, scene.device)
+    state = _init_path_state(scene, o, d, wl)
+    for depth in range(cfg.max_depth):
+        k = int(state["alive"].sum())                    # host sync
+        if alive_counts is not None:
+            alive_counts.append(k)
+        if k == 0:
+            break
+        if depth == 0:
+            state = _bounce_step(scene, cfg, state, depth, pixel, sample_idx)
+            continue
+        idx = _packet_order(state["o"], state["d"], state["alive"])[:k]
+        sub = _bounce_step(scene, cfg, {key: v[idx] for key, v in
+                                        state.items()},
+                           depth, pixel[idx], sample_idx)
+        for key in _BOUNCE_KEYS:          # the pass's own tensors, in place
+            state[key][idx] = sub[key]
+    wl_out = spec.SampledWavelengths(wl.lam, state["lam_pdf"])
+    rgb = torch.clamp(sensor.to_sensor_rgb(state["L"], wl_out), min=0.0)
+    return rgb.reshape(h, w, 3), fw.reshape(h, w)
+
+
 def render_passes(scene, camera, cfg: RenderConfig, filter_obj, sensor,
                   sample_idx0, n_passes: int):
     """n_passes samples per pixel accumulated as (rgb_sum, weight_sum)."""
@@ -345,7 +405,7 @@ def render(scene, camera, cfg: RenderConfig, film=None, progress=None,
     """Progressive render: cfg.sampler.spp passes accumulated into a Film.
     Resume from ``film`` (continues at ``film.spp_done``); ``passes`` stops
     early; ``chunk`` passes are summed before each film update."""
-    filter_obj = make_filter()
+    filter_obj = make_filter(cfg)
     sensor = sen.PixelSensor.create()
     if film is None:
         film = filmmod.Film.create(cfg.resolution, device=scene.device)

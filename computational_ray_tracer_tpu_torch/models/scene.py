@@ -54,11 +54,14 @@ class Scene:
     @classmethod
     def build(cls, materials, lights, spheres=None, mesh=None,
               use_octree=True, octree_capacity=None, texture_rgb=None,
-              device="cuda"):
+              backface_cull_dir=None, device="cuda"):
         """Host-side assembly as the reference's ``Scene.build``. ``mesh``
         is a MeshData or (MeshData, per-triangle material ids) on
         ``device``; with ``use_octree`` it is put in an octree of leaf
         capacity ``octree_capacity`` (default ``TRIANGLE_CAPACITY``).
+        ``backface_cull_dir`` drops the faces whose normal points along
+        that direction (the mask goes into the packed octree and the brute
+        test).
         ``texture_rgb`` (H, W, 3) linear RGB becomes sigmoid coefficients
         through the sRGB coefficient table."""
         sph = sph_m = None
@@ -66,26 +69,24 @@ class Scene:
             sph = shp.SphereTable.build(spheres, device)
             sph_m = torch.as_tensor([int(s.get("material", 0))
                                      for s in spheres], device=device)
-        tri_mat = tree = packed = None
+        tri_mat = tri_mask = tree = packed = None
         if mesh is not None:
             mesh, tri_mat = mesh if isinstance(mesh, tuple) else (mesh, None)
             tri_mat = (torch.zeros(mesh.n_triangles, dtype=torch.int64)
                        if tri_mat is None else torch.as_tensor(
                            np.asarray(tri_mat, np.int64)))
             tri_mat = tri_mat.to(device)
+            if backface_cull_dir is not None:
+                tri_mask = trimod.compute_backface_mask(mesh,
+                                                        backface_cull_dir)
             if use_octree:
                 cap = (octree_capacity if octree_capacity is not None
                        else octmod.TRIANGLE_CAPACITY)
                 tree = octmod.build_octree(mesh.positions.cpu().numpy(),
                                            mesh.indices.cpu().numpy(), cap)
-                packed = okern.pack_from_numpy(tree, mesh)
-        tex = None
-        if texture_rgb is not None:
-            from computational_ray_tracer_tpu_torch.ops import color
-            img = np.asarray(texture_rgb, np.float32)
-            tex = color.RGBToSpectrumTable.srgb().lookup(
-                torch.as_tensor(img.reshape(-1, 3))).reshape(img.shape)
-            tex = tex.to(device)
+                packed = okern.pack_from_numpy(tree, mesh, tri_mask)
+        tex = (None if texture_rgb is None
+               else texture_from_rgb(texture_rgb, device))
         mats = (materials if isinstance(materials, MaterialTable)
                 else MaterialTable.build(materials, device))
         lts = (lights if isinstance(lights, LightTable)
@@ -97,8 +98,18 @@ class Scene:
             r = max(r, float(sph.o2w[:, :3, 3].abs().max())
                     + float(sph.radius.abs().max()))
         has_rough = bool((mats.kind == ROUGH_CONDUCTOR).any())
-        return cls(sph, mesh, mats, lts, sph_m, tri_mat, tex, None, tree,
+        return cls(sph, mesh, mats, lts, sph_m, tri_mat, tex, tri_mask, tree,
                    packed, wr=10.0 * r, has_rough=has_rough)
+
+
+def texture_from_rgb(texture_rgb, device):
+    """(H, W, 3) linear RGB -> the sigmoid coefficients of each texel
+    through the sRGB coefficient table, on ``device``."""
+    from computational_ray_tracer_tpu_torch.ops import color
+    img = np.asarray(texture_rgb, np.float32)
+    tex = color.RGBToSpectrumTable.srgb().lookup(
+        torch.as_tensor(img.reshape(-1, 3))).reshape(img.shape)
+    return tex.to(device)
 
 
 def _packet_order(o, d, alive):

@@ -1,6 +1,6 @@
 """Reconstruction filters (``computational_ray_tracer_tpu/ops/filters.py``):
-the clipped Gaussian, the only filter of the slice, sampled exactly through
-the truncated Gaussian's inverse CDF."""
+box, triangle (tent) and the clipped Gaussian, each sampled exactly through
+its inverse CDF. The windowed sinc is not ported yet."""
 
 from __future__ import annotations
 
@@ -34,6 +34,40 @@ class Filter:
         return self._eval_axis_x(p[..., 0]) * self._eval_axis_y(p[..., 1])
 
 
+def box_filter(radius=(0.5, 0.5)):
+    """Uniform box: weight 2r per axis."""
+    def axis(r):
+        def s(u):
+            return (2.0 * u - 1.0) * r, torch.full_like(u, 2.0 * r)
+
+        def e(x):
+            return torch.where(x.abs() <= r, torch.ones_like(x),
+                               torch.zeros_like(x))
+        return s, e
+
+    rx, ry = radius
+    sx, ex = axis(rx)
+    sy, ey = axis(ry)
+    return Filter("box", tuple(radius), 4.0 * rx * ry, sx, sy, ex, ey)
+
+
+def triangle_filter(radius=(0.5, 0.5)):
+    """Tent filter f(x) = r - |x|, sampled exactly: weight r^2 per axis."""
+    def axis(r):
+        def s(u):
+            return smp.sample_tent(u, r), torch.full_like(u, r * r)
+
+        def e(x):
+            return torch.clamp(r - x.abs(), min=0.0)
+        return s, e
+
+    rx, ry = radius
+    sx, ex = axis(rx)
+    sy, ey = axis(ry)
+    return Filter("triangle", tuple(radius), rx * rx * ry * ry, sx, sy, ex,
+                  ey)
+
+
 def gaussian_filter(radius=(1.5, 1.5), sigma=0.5):
     """Clipped Gaussian f(x) = g(x) - g(r), sampled by the truncated
     Gaussian via erfinv; the clip offset is folded into the weight."""
@@ -63,3 +97,10 @@ def gaussian_filter(radius=(1.5, 1.5), sigma=0.5):
     sx, ex, ix = axis(radius[0])
     sy, ey, iy = axis(radius[1])
     return Filter("gaussian", tuple(radius), ix * iy, sx, sy, ex, ey)
+
+
+FILTERS = {
+    "box": box_filter,
+    "triangle": triangle_filter,
+    "gaussian": gaussian_filter,
+}

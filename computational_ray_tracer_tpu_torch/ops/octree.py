@@ -1,13 +1,14 @@
 """Octree over a triangle mesh (``computational_ray_tracer_tpu/ops/
 octree.py``): the host-side NumPy build and the plain PyTorch traversal.
 
-The build is one-shot scene set-up in vectorized NumPy: a top-down split
-with leaf capacity ``capacity``, child bounds padded by a fraction of the
-child's extent, the split aborted when it separates nothing, the Moller
-triangle/box overlap test, and a post-pass that splits over-full leaves
-into chains of same-bounds children. It gives the same six arrays as the
-reference's builder, bit for bit. The reference's native C++ builder is not
-ported.
+The build is one-shot scene set-up: a top-down split with leaf capacity
+``capacity``, child bounds padded by a fraction of the child's extent, the
+split aborted when it separates nothing, the Moller triangle/box overlap
+test, and a post-pass that splits over-full leaves into chains of
+same-bounds children. It gives the same six arrays as the reference's
+builder, bit for bit. Two builders do the split: the native C++ one
+(``csrc/host/octree_builder.cpp``, built by g++ at first use; the default)
+and the vectorized NumPy one, its plain version (``backend="numpy"``).
 
 :func:`octree_traverse` is the reference's lockstep traversal in PyTorch
 and the plain version of the CUDA traversal kernel
@@ -16,6 +17,7 @@ and the plain version of the CUDA traversal kernel
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
@@ -254,15 +256,49 @@ def _split_oversized_leaves(tree: Octree, cap):
                   flat, np.asarray(out_counts, np.int32))
 
 
+def _build_octree_native(pos_np, idx_np, capacity, max_depth, padding):
+    """``crt_build_octree`` (C++) through ctypes; the same tree as
+    :func:`_build_octree_numpy`. Raises if the library cannot be built or
+    the call fails."""
+    from computational_ray_tracer_tpu_torch.kernels import build
+    lib = build.load_host_library()
+    pos = np.ascontiguousarray(pos_np, np.float32)
+    idx = np.ascontiguousarray(idx_np, np.int32)
+    out = build.CrtOctree()
+    rc = lib.crt_build_octree(
+        pos.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), pos.shape[0],
+        idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), idx.shape[0],
+        capacity, max_depth, float(padding), ctypes.byref(out))
+    try:
+        if rc != 0:
+            raise RuntimeError(f"native octree builder failed ({rc})")
+        m, n_leaves, cap = int(out.n_nodes), int(out.n_leaves), \
+            int(out.leaf_cap)
+        arr = lambda p, shape: np.ctypeslib.as_array(p, shape).copy()
+        return Octree(arr(out.node_lo, (m, 3)), arr(out.node_hi, (m, 3)),
+                      arr(out.node_child0, (m,)),
+                      arr(out.node_leaf_id, (m,)),
+                      arr(out.leaf_tris, (n_leaves, cap)),
+                      arr(out.leaf_counts, (n_leaves,)))
+    finally:
+        lib.crt_free_octree(ctypes.byref(out))
+
+
+_BUILDERS = {"native": _build_octree_native, "numpy": _build_octree_numpy}
+
+
 def build_octree(positions, indices, capacity=TRIANGLE_CAPACITY,
-                 max_depth=MAX_DEPTH):
+                 max_depth=MAX_DEPTH, backend="native"):
     """Octree over a world-space mesh given as host arrays (positions
-    (V, 3), indices (F, 3)): the NumPy build with the fractional child
-    padding, then the over-full-leaf split."""
+    (V, 3), indices (F, 3)): the ``backend`` build ("native", the C++
+    builder, or "numpy", its plain version; both give the same tree) with
+    the fractional child padding, then the over-full-leaf split."""
+    if backend not in _BUILDERS:
+        raise ValueError(f"unknown octree backend {backend!r}")
     pos = np.asarray(positions, np.float32)
     idx = np.asarray(indices, np.int32)
-    tree = _build_octree_numpy(pos, idx, capacity, max_depth,
-                               CHILD_PADDING_FRAC)
+    tree = _BUILDERS[backend](pos, idx, capacity, max_depth,
+                              CHILD_PADDING_FRAC)
     return _split_oversized_leaves(tree, capacity)
 
 

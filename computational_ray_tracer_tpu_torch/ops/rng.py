@@ -100,6 +100,39 @@ def permutation_element(i, n: int, p):
 
 
 # ---------------------------------------------------------------------------
+# Stratified sampler
+# ---------------------------------------------------------------------------
+
+def stratified_1d(seed, pixel, sample_idx, dim, spp: int, jitter=True):
+    """One of ``spp`` strata, chosen by a per-(pixel, dim) permutation of
+    the sample index, jittered within the stratum (or at its centre)."""
+    stratum = permutation_element(sample_idx, spp,
+                                  hash_u32(pixel, dim, seed))
+    stratum = stratum.to(torch.float32)
+    if jitter:
+        delta = independent_1d(seed, pixel, sample_idx, dim)
+    else:
+        delta = torch.full_like(stratum, 0.5)
+    return (stratum + delta) / spp
+
+
+def stratified_2d(seed, pixel, sample_idx, dim, xs: int, ys: int,
+                  jitter=True):
+    """A cell of the (xs, ys) grid, spp = xs * ys, jittered per axis."""
+    spp = xs * ys
+    stratum = permutation_element(sample_idx, spp,
+                                  hash_u32(pixel, dim, seed))
+    x = (stratum % xs).to(torch.float32)
+    y = (stratum // xs).to(torch.float32)
+    if jitter:
+        dx = independent_1d(seed, pixel, sample_idx, dim)
+        dy = independent_1d(seed, pixel, sample_idx, dim + 1)
+    else:
+        dx = dy = torch.full_like(x, 0.5)
+    return torch.stack([(x + dx) / xs, (y + dy) / ys], dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # Sobol' matrices: Joe-Kuo initials for dims 2..37, committed tail beyond
 # ---------------------------------------------------------------------------
 

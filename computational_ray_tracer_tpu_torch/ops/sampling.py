@@ -32,6 +32,23 @@ def erf_inv(x):
     return torch.where(w < 5.0, small, big) * x
 
 
+def sample_linear(u, a, b):
+    """Inverse-CDF sample of the linear pdf on [0, 1] from a to b."""
+    denom = a + torch.sqrt((1.0 - u) * a * a + u * b * b)
+    x = u * (a + b) / torch.where(denom == 0.0, torch.ones_like(denom),
+                                  denom)
+    return torch.clamp(x, max=0.9999999)
+
+
+def sample_tent(u, r):
+    """Tent on [-r, r] as two mirrored linear lobes."""
+    u_left = torch.clamp(2.0 * u, 0.0, 1.0)
+    u_right = torch.clamp(2.0 * u - 1.0, 0.0, 1.0)
+    x_left = -r + r * sample_linear(u_left, 0.0, 1.0)
+    x_right = r * sample_linear(u_right, 1.0, 0.0)
+    return torch.where(u < 0.5, x_left, x_right)
+
+
 def sample_uniform_disk_concentric(u, radius=1.0):
     """Shirley-Chiu concentric mapping of [0,1)^2 to the disk."""
     uo = 2.0 * u - 1.0

@@ -49,6 +49,8 @@ NAMED_SPECTRA = {
     "illum-acesD60": ILLUM_D60, "stdillum-E": ILLUM_E,
     "cie-x": CIE_X, "cie-y": CIE_Y, "cie-z": CIE_Z,
 }
+for _i in range(1, 13):
+    NAMED_SPECTRA[f"stdillum-F{_i}"] = _T[f"stdillum-F{_i}"]
 for _name, _v in GLASS_IOR.items():
     NAMED_SPECTRA[_name + "-eta"] = _v
 for _name in METAL_ETA:

@@ -3,8 +3,13 @@ spectrum.py``): sampled wavelengths, dense-table interpolation, CIE XYZ.
 
 A sampled spectrum is a float32 tensor with a trailing axis of 8 hero
 wavelengths. Dense 1 nm tables over [360, 830] are interpolated with a
-gather and a lerp (the reference's CPU branch; its TPU one-hot matmul branch
-changes no value and is not ported).
+gather and a lerp. :func:`sample_dense_multi`, which every pass calls for
+its spectral cache and its sensor, goes through ``ops/interp_kernel.py``:
+the CUDA interpolation kernel on the card, its plain version on the CPU.
+On the card it launches for every call, whatever the size (the reference
+keeps its TPU kernel opt-in because inside one fused XLA program it was a
+fusion barrier; in eager PyTorch one kernel replaces a chain of gathers and
+lerps and breaks no fusion).
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from computational_ray_tracer_tpu_torch.ops import interp_kernel as ik
 from computational_ray_tracer_tpu_torch.ops import spectra_data as data
 
 LAMBDA_MIN = data.LAMBDA_MIN
@@ -73,10 +79,27 @@ def sample_dense(table, lam):
 
 
 def sample_dense_multi(tables, lam):
-    """C dense SPDs at once: tables (471, C), lam (..., S) -> (..., S, C)."""
+    """C dense SPDs at once: tables (471, C), lam (..., S) -> (..., S, C),
+    through the interpolation kernel's wrapper; 0 outside [360, 830]."""
     i0, w, inside = _dense_idx_frac(lam)
-    v = tables[i0] * (1.0 - w[..., None]) + tables[i0 + 1] * w[..., None]
+    c = tables.shape[1]
+    v = ik.dense_interp(tables.contiguous(), i0.reshape(-1).to(torch.int32),
+                        w.reshape(-1).contiguous()).reshape(lam.shape + (c,))
     return torch.where(inside[..., None], v, torch.zeros_like(v))
+
+
+@dataclasses.dataclass
+class DenselySampledSpectrum:
+    """A dense 1 nm table over [360, 830]."""
+    values: torch.Tensor  # (471,)
+
+    @classmethod
+    def from_named(cls, name: str, device="cpu"):
+        return cls(torch.as_tensor(data.get_named_spectrum(name),
+                                   device=device))
+
+    def __call__(self, lam):
+        return sample_dense(self.values, lam)
 
 
 def sample_dense_rows(table, rows, lam):

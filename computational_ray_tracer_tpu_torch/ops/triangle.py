@@ -125,3 +125,14 @@ def mesh_surface(o, d, t, tri_idx, b1, b2, mesh: MeshData):
     return SurfaceInfo(t=t, valid=torch.isfinite(t) & (tri_idx >= 0), p=p,
                        n=torch.where(flip, -n, n), uv=uv, dpdu=dpdu,
                        dpdv=dpdv, wo=wo, backface=backface)
+
+
+def compute_backface_mask(mesh: MeshData, look_dir):
+    """Per-face visibility against a look direction: True keeps a face
+    whose geometric normal points against ``look_dir``."""
+    i = mesh.indices
+    p0, p1, p2 = (mesh.positions[i[:, k]] for k in range(3))
+    fn = torch.linalg.cross(p1 - p0, p2 - p0)
+    look = torch.as_tensor(np.asarray(look_dir, np.float32),
+                           device=fn.device)
+    return torch.sum(fn * look, dim=-1) < 0.0

@@ -287,7 +287,7 @@ def test_direct_render_pass_matches_jax(mesh_bench_small, sample_idx):
     f, s = jinteg.make_filter(jcfg), jinteg.make_sensor(jcfg)
     rj, wj = jax.jit(lambda sc, i: jinteg.render_pass(
         sc, jcamera, jcfg, f, s, i))(jsc, jnp.uint32(sample_idx))
-    rt, wt = tinteg.render_pass(carried, tcamera, tcfg, tinteg.make_filter(),
+    rt, wt = tinteg.render_pass(carried, tcamera, tcfg, tinteg.make_filter(tcfg),
                                 tsen.PixelSensor.create(), sample_idx)
     rj, wj = np.asarray(rj), np.asarray(wj)
     assert np.isfinite(rt.numpy()).all() and rj.max() > 0.05
@@ -295,7 +295,7 @@ def test_direct_render_pass_matches_jax(mesh_bench_small, sample_idx):
     np.testing.assert_allclose(rt.numpy(), rj, rtol=0,
                                atol=2e-3 * max(float(rj.max()), 1e-3))
     # The port's own build renders the same image as the carried scene.
-    own, _ = tinteg.render_pass(tsc, tcamera, tcfg, tinteg.make_filter(),
+    own, _ = tinteg.render_pass(tsc, tcamera, tcfg, tinteg.make_filter(tcfg),
                                 tsen.PixelSensor.create(), sample_idx)
     np.testing.assert_allclose(own.numpy(), rt.numpy(), rtol=0,
                                atol=2e-3 * max(float(rj.max()), 1e-3))

@@ -76,7 +76,7 @@ def test_render_pass_matches_jax(cornell32, sample_idx):
         sc, jcamera, jcfg, f, s, i))(jscene, jnp.uint32(sample_idx))
     _, tcamera, tcfg = entry.cornell_setup(res=32, spp=2, device="cpu")
     rt, wt = tinteg.render_pass(tscene, tcamera, tcfg,
-                                tinteg.make_filter(),
+                                tinteg.make_filter(tcfg),
                                 tsen.PixelSensor.create(), sample_idx)
     rj, wj = np.asarray(rj), np.asarray(wj)
     assert rt.shape == (32, 32, 3) and np.isfinite(rt.numpy()).all()
@@ -271,9 +271,9 @@ def test_lights_all_kinds_match():
 def test_unported_options_raise():
     scene, camera, cfg = entry.cornell_setup(8, 1, device="cpu")
     with pytest.raises(NotImplementedError):
-        tinteg.SamplerConfig(kind="stratified")
-    for change in ({"compact": True}, {"integrator": "simple"},
-                   {"integrator": "walk"}):
+        tinteg.SamplerConfig(kind="sobol_global")
+    for change in ({"integrator": "simple"}, {"integrator": "walk"},
+                   {"filter_name": "lanczos"}):
         with pytest.raises(NotImplementedError):
             dataclasses.replace(cfg, **change)
 

@@ -1,21 +1,24 @@
 """Where one pass of one of the port's headline renders spends its device
 time.
 
-    python tools/profile_torch_pass.py [--scene cornell|mesh327k] [--res 512]
-        [--reps 5] [--out DIR]
+    python tools/profile_torch_pass.py [--scene cornell|mesh327k|flagship]
+        [--res 512] [--reps 5] [--out DIR]
 
 Runs the Cornell headline scene (``--scene cornell``, the default:
 ``computational_ray_tracer_tpu_torch.entry.cornell_setup``, path/MIS depth
-4) or the mesh bench scene (``--scene mesh327k``: ``entry.mesh327k_setup``,
-327,680 triangles in an octree, direct lighting) on the GPU, all in one
-process on one tree: one warm-up
-pass; ``--reps`` unprofiled passes, each timed on the host clock from its
+4), the mesh bench scene (``--scene mesh327k``: ``entry.mesh327k_setup``,
+327,680 triangles in an octree, direct lighting) or the flagship
+(``--scene flagship``: ``entry.flagship_setup``, the mesh bench scene
+textured, path/MIS depth 4) on the GPU through ``render_pass``, the pass
+``render()`` runs, all in one process on one tree: one warm-up pass;
+``--reps`` unprofiled passes, each timed on the host clock from its
 start to a ``synchronize`` (the pass's wall time); then one pass under
 ``torch.profiler`` with CPU and CUDA activities, whose kernel durations give
 the pass's device busy time. The device idle share of an unprofiled pass is
 1 - busy time / median unprofiled wall time (the profiler stretches wall
 time, not kernel durations). Prints one JSON line with those numbers, the
-share of the port's own kernels (mesh intersection, octree traversal) in
+share of the port's own kernels (mesh intersection, octree traversal,
+dense-spectrum interpolation) in
 the busy time, the launch count and the top device kernels, and writes the
 same JSON and the chrome trace to ``--out`` (by default the package's
 git-ignored build directory), named after the scene. Needs a CUDA card;
@@ -42,7 +45,7 @@ from computational_ray_tracer_tpu_torch.ops import sensor as sen  # noqa: E402
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("cornell", "mesh327k"),
+    ap.add_argument("--scene", choices=("cornell", "mesh327k", "flagship"),
                     default="cornell")
     ap.add_argument("--res", type=int, default=512)
     ap.add_argument("--reps", type=int, default=5)
@@ -54,9 +57,11 @@ def main():
     dev = torch.device("cuda", 0)
     if args.scene == "cornell":
         scene, camera, cfg = entry.cornell_setup(args.res, 32, dev)
-    else:
+    elif args.scene == "mesh327k":
         scene, camera, cfg = entry.mesh327k_setup(args.res, 4, device=dev)
-    flt, sensor = integ.make_filter(), sen.PixelSensor.create()
+    else:
+        scene, camera, cfg = entry.flagship_setup(args.res, 4, device=dev)
+    flt, sensor = integ.make_filter(cfg), sen.PixelSensor.create()
     walls = []
     with torch.no_grad():
         integ.render_pass(scene, camera, cfg, flt, sensor, 0)
@@ -89,6 +94,7 @@ def main():
         "device_busy_s": busy_s, "idle_share": 1.0 - busy_s / wall,
         "mesh_kernel_share_of_busy": share("mesh_intersect"),
         "octree_kernel_share_of_busy": share("octree_traverse"),
+        "interp_kernel_share_of_busy": share("dense_interp"),
         "n_kernel_launches": sum(v[1] for v in kernels.values()),
         "top": [{"name": n[:90], "us": v[0], "count": v[1]}
                 for n, v in top]}
