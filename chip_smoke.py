@@ -9,15 +9,21 @@ failed check raises, so the script exits non-zero:
 0. refuse to run without a card; print the card's name and power limit;
 1. build (or load) the kernel library from csrc/ with nvcc, one process per
    source, all started together;
-2. mesh-intersection kernel vs its plain PyTorch version on the card, on
-   (a) the 512x512 Cornell camera wavefront and (b) a seeded 4,096-triangle
-   soup x 262,144 rays with a finite t_max and a 50% triangle mask: bitwise
-   agreement (or the reference's own tolerances), and both times;
+2. the brute-force mesh kernel (closest hit) vs its plain PyTorch version
+   on the card, on (a) the 512x512 Cornell camera wavefront and (b) a
+   seeded 4,096-triangle soup x 262,144 rays with a finite t_max and a 50%
+   triangle mask: bitwise agreement, outputs and both per-ray counters;
+   the kernel timed as replays of a CUDA graph of 20 launches, its bound
+   from its own counters;
 3. the 128x128 golden Cornell render through the port's render(), against
    tests/golden/config2_cornell_path_128.npy at atol 2e-3*max;
 4. the Cornell headline: Cornell box + sphere, 512x512, spp 32, path/MIS
    depth 4, through render(); image checks, seconds per pass and rays/s,
-   with the kernel launch counts of that run;
+   with the launch counts of both brute-force modes in that run; then (4b)
+   the inputs of the 8 brute-force launches of one full-wavefront pass
+   (closest and any hit, depths 0-3), each held to the plain version
+   bitwise (closest hit: all four outputs; any hit: every bit; both
+   counters), timed as in phase 2 and bounded by its own counters;
 5. the octree kernel on the mesh bench scene (entry.mesh327k_setup:
    327,680 triangles, leaf cap 192): set-up times, tree shape and memory;
    (a) closest hit vs the plain traversal on the 512x512 camera wavefront,
@@ -63,14 +69,15 @@ failed check raises, so the script exits non-zero:
    atol 2e-3*max; the 500x500 spp 100 frame, seconds per pass and rays/s
    (1 ray per sample); (12b) the octree kernel on the camera wavefront of
    one pass, as in 10b;
-13. a JSON line of the kernels, with a row for each launch of 10b and for
-   12b (CUDA-event medians: of 5 for the kernels, of 3 for the plain
-   traversal and the brute kernel at full mesh size, one run of the
-   plain traversal in 10b and 12b; the octree kernel in 10b and 12b, the
-   interpolation kernel, its plain version and grid_sample timed as
-   replays of a CUDA graph of 20 launches; errors; launches; the bound: the least time the card could
-   take for the same work, from the counted fp32 operations at 67 TFLOP/s
-   and the bytes at 3.35 TB/s), then the JSON result line.
+13. a JSON line of the kernels, with a row for each brute-force mode, each
+   launch of 4b, each launch of 10b and 12b (CUDA-event medians: of 5 for
+   the kernels, of 3 for the plain versions and the brute kernel at full
+   mesh size, one run of the plain traversal in 10b and 12b; the brute
+   kernel in 2 and 4b, the octree kernel in 10b and 12b, the interpolation
+   kernel, its plain version and grid_sample timed as replays of a CUDA
+   graph of 20 launches; errors; launches; the bound: the least time the
+   card could take for the same work, from the counted fp32 operations at
+   67 TFLOP/s and the bytes at 3.35 TB/s), then the JSON result line.
 """
 
 import contextlib
@@ -182,12 +189,17 @@ def bound(flops, nbytes):
             else "bytes")
 
 
-def brute_bound(n, f, mask=None):
-    """Bound of a brute-force launch: every unmasked ray/triangle pair;
-    rays (7 floats), triangles (9), the mask and 4 outputs per ray once."""
-    f_used = f if mask is None else int(mask.sum())
-    return bound(n * f_used * mik.PAIR_FLOPS,
-                 4 * (7 * n + 9 * f + (0 if mask is None else f) + 4 * n))
+def brute_bound(t_max, tests, passed, f, mask, out_bytes):
+    """Bound of a brute-force launch from its own per-ray counters: 132
+    operations per pair tested that fails the edge-sign test, 175 per pair
+    that passes it (live rays only; any hit up to its first hit); o and d
+    read for the live rays (t_max > 0), t_max and ``out_bytes`` of outputs
+    for every ray, the triangles (36 bytes each) and the mask once."""
+    n, live = t_max.numel(), int((t_max > 0).sum())
+    tests, passed = int(tests.sum()), int(passed.sum())
+    return bound((tests - passed) * mik.EDGE_FLOPS + passed * mik.PAIR_FLOPS,
+                 24 * live + (4 + out_bytes) * n + 36 * f
+                 + (0 if mask is None else f))
 
 
 @contextlib.contextmanager
@@ -215,40 +227,34 @@ def wrapped(module, name, before=None, after=None):
 
 def compare(name, o, d, t_max, mesh, mask):
     """The wrapper the scene calls (it launches the kernel on card tensors)
-    vs the plain version on the same tensors; raises unless bitwise equal
-    or within the reference's tolerances (tests/test_pallas_intersect.py)."""
+    vs the plain version on the same tensors; raises unless bitwise equal,
+    counters included. The kernel is timed as replays of a CUDA graph of
+    20 launches, its bound taken from its own counters."""
     kern = lambda: mik.mesh_intersect(o, d, t_max, mesh, mask)[:4]
     chunk = max(1, (1 << 25) // mesh.n_triangles)
     plain = lambda: mik.mesh_intersect_plain(o, d, t_max, mesh.tri_verts,
-                                             mask, chunk=chunk)[:4]
+                                             mask, chunk=chunk, stats=True)
     launches0 = mik.LAUNCHES
     k = kern()
     p = plain()
     torch.cuda.synchronize()
     assert mik.LAUNCHES == launches0 + 1, f"{name}: the kernel did not launch"
-    bitwise = all(torch.equal(a, b) for a, b in zip(k, p))
-    hk, hp = torch.isfinite(k[0]), torch.isfinite(p[0])
-    both = hk & hp
-    agree = (hk == hp).float().mean().item()
-    same_id = (k[1][both] == p[1][both]).float().mean().item() \
-        if both.any() else 1.0
-    err = max([(k[0][both] - p[0][both]).abs().max().item() if both.any()
-               else 0.0] + [(a - b).abs().max().item()
-                            for a, b in zip(k[2:], p[2:])])
-    if not bitwise:
-        assert agree > 0.995, f"{name}: hit agreement {agree}"
-        assert same_id > 0.99, f"{name}: same triangle on {same_id}"
-        torch.testing.assert_close(k[0][both], p[0][both], rtol=2e-4,
-                                   atol=2e-5)
-    ms = median_ms(kern)
-    plain_ms = median_ms(plain)
-    n, f = o.shape[0], mesh.n_triangles
-    bound_ms, bound_by = brute_bound(n, f, mask)
-    row = {"case": name, "rays": n, "triangles": f, "bitwise": bitwise,
-           "hit_agree": agree, "same_id": same_id,
-           "hit_frac": hk.float().mean().item(), "max_abs_err": err,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by}
+    bitwise = all(torch.equal(a, b) for a, b in zip(k, p[:4]))
+    assert bitwise, f"{name}: the kernel differs from its plain version on " \
+        f"{int((k[1] != p[1]).sum())} ids"
+    tests, passed = mik.mesh_intersect(o, d, t_max, mesh, mask,
+                                       stats=True)[5:]
+    assert torch.equal(tests, p[5]) and torch.equal(passed, p[6]), \
+        f"{name}: the kernel's counters differ from the plain count"
+    bound_ms, bound_by = brute_bound(t_max, tests, passed, mesh.n_triangles,
+                                     mask, 16)
+    row = {"case": name, "rays": o.shape[0], "triangles": mesh.n_triangles,
+           "bitwise": bitwise, "hit_frac": torch.isfinite(k[0]).float()
+           .mean().item(), "max_abs_err": 0.0,
+           "passed_per_ray": passed.float().mean().item(),
+           "ms": per_launch_ms(kern), "plain_ms": median_ms(plain, 3),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    row["share_of_bound"] = bound_ms / row["ms"]
     print("phase2", json.dumps(row), flush=True)
     return row
 
@@ -369,6 +375,13 @@ def plain_ray_set(packed, o, d, t_max):
             sub_ms)
 
 
+def brute_launch_bound(o, d, t_max, mesh):
+    """The bound (ms) of one closest-hit brute-force launch, from the
+    kernel's counters."""
+    tests, passed = mik.mesh_intersect(o, d, t_max, mesh, stats=True)[5:]
+    return brute_bound(t_max, tests, passed, mesh.n_triangles, None, 16)[0]
+
+
 def octree_phase(dev):
     """Phase 5 on the mesh bench scene; returns (scene, camera, cfg, rows)
     with the kernel rows of the closest-hit and any-hit modes."""
@@ -419,7 +432,7 @@ def octree_phase(dev):
     row_b = hits_agree("b_closest_vs_brute_kernel", k, brute())
     row_b.update(ms=median_ms(kern), brute_kernel_ms=median_ms(brute, 3),
                  pairs=n * scene.mesh.n_triangles,
-                 brute_bound_ms=brute_bound(n, scene.mesh.n_triangles)[0])
+                 brute_bound_ms=brute_launch_bound(o, d, t_inf, scene.mesh))
     print("phase5b", json.dumps(row_b), flush=True)
 
     # (c) any hit vs plain on the sorted shadow wavefront of a direct pass
@@ -472,7 +485,7 @@ def octree_phase(dev):
                  leaf_table_mb=dpacked.leaf_verts.numel() * 4 / 1e6,
                  ms=median_ms(kern_d), brute_kernel_ms=median_ms(dbrute, 3),
                  bound_ms=bound_d, bound_by=bound_d_by,
-                 brute_bound_ms=brute_bound(n, dmesh.n_triangles)[0],
+                 brute_bound_ms=brute_launch_bound(do, dd, t_inf, dmesh),
                  max_memory_allocated_mb=torch.cuda.max_memory_allocated()
                  / 1e6, **counters(tests, pops))
     print("phase5d", json.dumps(row_d), flush=True)
@@ -491,6 +504,86 @@ def capture_octree_launches(fn):
             wrapped(okern, "octree_anyhit", before=keep("anyhit")):
         fn()
     return calls
+
+
+def capture_mesh_launches(fn):
+    """Run ``fn()`` and return the inputs of every brute-force mesh kernel
+    wrapper call it makes: a list of (mode, (o, d, t_max) cloned, mesh,
+    tri_mask)."""
+    calls = []
+    keep = lambda mode: lambda o, d, t_max, mesh, tri_mask=None: \
+        calls.append((mode, (o.reshape(-1, 3).clone(),
+                             d.reshape(-1, 3).clone(),
+                             t_max.reshape(-1).clone()), mesh, tri_mask))
+    with wrapped(mik, "mesh_intersect", before=keep("closest")), \
+            wrapped(mik, "mesh_anyhit", before=keep("anyhit")):
+        fn()
+    return calls
+
+
+def mesh_launch_row(name, mode, rays, mesh, mask):
+    """The brute-force kernel on one captured launch, through its wrapper:
+    held to the plain version bitwise (closest hit: all four outputs; any
+    hit: every bit) and on both counters, timed as replays of a CUDA graph
+    of 20 launches, and bounded by its own counters."""
+    o, d, t = rays
+    anyhit = mode == "anyhit"
+    wrapper = mik.mesh_anyhit if anyhit else mik.mesh_intersect
+    plain_fn = mik.mesh_anyhit_plain if anyhit else mik.mesh_intersect_plain
+    plain = lambda: plain_fn(o, d, t, mesh.tri_verts, mask, stats=True)
+    k = wrapper(o, d, t, mesh, mask)
+    p = plain()
+    torch.cuda.synchronize()
+    if anyhit:
+        assert torch.equal(k, p[0]), \
+            f"{name}: any hit differs on {int((k != p[0]).sum())} rays"
+        row = {"case": name, "occluded_frac": k.float().mean().item()}
+    else:
+        assert all(torch.equal(a, b) for a, b in zip(k[:4], p[:4])), \
+            f"{name}: closest hit differs on {int((k[1] != p[1]).sum())} ids"
+        row = {"case": name, "hit_frac": torch.isfinite(k[0]).float()
+               .mean().item()}
+    tests, passed = wrapper(o, d, t, mesh, mask, stats=True)[-2:]
+    assert torch.equal(tests, p[-2]) and torch.equal(passed, p[-1]), \
+        f"{name}: the kernel's counters differ from the plain count"
+    bound_ms, bound_by = brute_bound(t, tests, passed, mesh.n_triangles, mask,
+                                     1 if anyhit else 16)
+    ms = per_launch_ms(lambda: wrapper(o, d, t, mesh, mask))
+    live = t > 0
+    row.update(mode=mode, rays=t.numel(), alive=int(live.sum()),
+               bitwise=True, max_abs_err=0.0,
+               tests_per_live_ray=(tests.sum() / live.sum().clamp(min=1))
+               .item(),
+               passed_per_live_ray=(passed.sum() / live.sum().clamp(min=1))
+               .item(),
+               ms=ms, plain_ms=median_ms(plain, 3), bound_ms=bound_ms,
+               bound_by=bound_by, share_of_bound=bound_ms / ms)
+    return row
+
+
+def cornell_launches(scene, camera, cfg, launches):
+    """Phase 4b: the brute-force kernel on each of the 8 launches (closest
+    and any hit, depths 0-3) of one full-wavefront Cornell pass.
+    ``launches``: the kernel's launches per mode in phase 4's render.
+    Returns the kernel-line rows."""
+    calls = capture_mesh_launches(lambda: integ.render_pass(
+        scene, camera, cfg, integ.make_filter(cfg), sen.PixelSensor.create(),
+        0))
+    depth = cfg.max_depth
+    modes = [m for m, *_ in calls]
+    assert modes == ["closest", "anyhit"] * depth, modes
+    rows = []
+    for j, (mode, rays, mesh, mask) in enumerate(calls):
+        row = mesh_launch_row(f"cornell_{mode}_d{j // 2}", mode, rays, mesh,
+                              mask)
+        assert launches[mode] % depth == 0, launches
+        row["launches"] = launches[mode] // depth
+        print("phase4b", json.dumps(row), flush=True)
+        rows.append(row)
+    print("phase4b_sum", json.dumps({
+        "ms": sum(r["ms"] for r in rows),
+        "bound_ms": sum(r["bound_ms"] for r in rows)}), flush=True)
+    return rows
 
 
 def octree_launch_row(name, packed, mode, rays):
@@ -793,13 +886,14 @@ def main():
     # phase 4: one warm-up pass, then the timed Cornell headline render
     integ.render(scene, camera, cfg, passes=1)
     torch.cuda.synchronize()
-    mik.LAUNCHES = ik.LAUNCHES = 0
+    mik.LAUNCHES = mik.LAUNCHES_ANYHIT = ik.LAUNCHES = 0
     t0 = time.perf_counter()
     film, sensor = integ.render(scene, camera, cfg, chunk=HEADLINE_SPP)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches, c_interp = mik.LAUNCHES, ik.LAUNCHES
-    assert launches > 0 and c_interp > 0, \
+    launches = {"closest": mik.LAUNCHES, "anyhit": mik.LAUNCHES_ANYHIT}
+    c_interp = ik.LAUNCHES
+    assert min(launches.values()) > 0 and c_interp > 0, \
         f"the headline render launched the kernels {launches}, {c_interp}"
     img = film.resolve(sensor).cpu().numpy()
     mean, left, right = image_checks(img)
@@ -812,6 +906,7 @@ def main():
         "launches": launches, "launches_interp": c_interp,
         "image_mean": mean, "left_wall": left,
         "right_wall": right, "card": card}), flush=True)
+    cornell_rows = cornell_launches(scene, camera, cfg, launches)
     del scene, film, mesh_s, o_s, d_s
 
     # phase 5
@@ -922,10 +1017,16 @@ def main():
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None}
     octree_src = "computational_ray_tracer_tpu/ops/pallas_octree.py:242"
+    brute_src = "computational_ray_tracer_tpu/ops/pallas_intersect.py:72"
     print(json.dumps({"kernels": [
-        kernel("mesh_intersect", "mesh_intersect.cu",
-               "computational_ray_tracer_tpu/ops/pallas_intersect.py:72",
-               launches, cam_row, max(r["max_abs_err"] for r in rows)),
+        kernel("mesh_intersect", "mesh_intersect.cu", brute_src,
+               launches["closest"], cam_row,
+               max(r["max_abs_err"] for r in rows + cornell_rows)),
+        kernel("mesh_anyhit", "mesh_intersect.cu", brute_src,
+               launches["anyhit"], cornell_rows[1], 0.0)] + [
+            kernel(f"mesh_{r['case']}", "mesh_intersect.cu", brute_src,
+                   r["launches"], r, r["max_abs_err"])
+            for r in cornell_rows] + [
         kernel("octree_closest", "octree_traverse.cu", octree_src,
                m_launches[0], row_closest,
                max(row_closest["t_abs_err_max"],

@@ -1,4 +1,5 @@
-// Brute-force watertight ray/triangle closest hit for NVIDIA Hopper (sm_90a).
+// Brute-force watertight ray/triangle closest hit and any hit for NVIDIA
+// Hopper (sm_90a).
 //
 // Replaces: computational_ray_tracer_tpu/ops/pallas_intersect.py
 //   _intersect_kernel (launched by _mesh_intersect_impl, wrapped by
@@ -7,29 +8,59 @@
 //   the dominant axis, shear, DifferenceOfProducts edge functions, a
 //   gamma-bounded t), and returns t (+inf on a miss), the triangle id (-1 on
 //   a miss) and the barycentrics b1 = e1/det, b2 = e2/det at the winner.
+//   The any-hit mode (the JAX scene's id >= 0 test on that output) returns
+//   one byte per ray and stops at the ray's first hit.
 //
-// What bounds it on the H100: 175 fp32 operations per ray-triangle pair
-//   (PAIR_FLOPS in ops/mesh_intersect_kernel.py) against 40 bytes of
-//   triangle data that every ray of a block shares, so the kernel is
-//   compute-bound in fp32 (67 TFLOP/s outside the tensor cores); device
-//   memory sees one read of each ray and one write of each result.
+// What bounds it on the H100: fp32 arithmetic issued one rounding at a
+//   time. A pair that fails the edge-sign test costs 132 operations
+//   (translate 9, shear 12, three DifferenceOfProducts 111), one that
+//   passes 175 (EDGE_FLOPS and PAIR_FLOPS in ops/mesh_intersect_kernel.py);
+//   the triangles (36 bytes each) are shared by every ray of a block, so
+//   device memory sees one read of each live ray and one write of each
+//   result. Without FMA contraction an add or a multiply issues at half the
+//   published 67 TFLOP/s, which counts an FMA as two operations.
 //
-// What the design does about it: one thread per ray, 256 rays per block,
-//   and the block walks all triangles in tiles of 256 staged through shared
-//   memory as SoA (9 vertex floats + the mask, 10 KB per tile). Every thread
-//   reads the same shared word at a time, which is a broadcast, so there are
-//   no bank conflicts, and the only per-pair work is arithmetic. The TPU
-//   kernel's sequential triangle grid axis with an output-resident running
-//   best becomes the per-thread loop; nothing crosses blocks.
+// What the design does about it, aimed at the Cornell pass (12 triangles,
+//   262,144 rays, many of them dead at depth >= 1):
+//   - Live rays only. A block of 256 rays writes the miss of every ray with
+//     t_max <= 0 (or NaN), which cannot hit (the range test needs
+//     0 < ts < t_max |det|), and packs its live rays onto its first
+//     threads in ray order; warps past the live count only help stage the
+//     triangles. No second launch and no global queue.
+//   - Triangles staged once per block, masked ones dropped while staging
+//     (a ballot and a prefix over the block's warps keep the kept ones in
+//     index order), and stored in the three axis permutations of the
+//     watertight test: a lane reads its ray's permutation with three
+//     16-byte shared loads, so the per-pair permute selects are gone (the
+//     ray's origin is permuted once instead: the same subtractions). At
+//     F <= 256 one tile holds the mesh and the block syncs twice in all;
+//     larger meshes go in tiles of 256 with two syncs a tile.
+//   - The costly part deferred. The division, t, its error bound and the
+//     barycentrics run only for pairs that pass the edge-sign and range
+//     tests, and a closest-hit lane keeps its latest such pair in
+//     registers and finishes it when the next one comes or after the last
+//     triangle: with incoherent rays nearly every triangle has a lane with
+//     a candidate, and finishing in place would make the warp pay the
+//     costly part at almost every triangle.
+//   - Ray loads: a warp with at least 8 live rays loads its 32 rays' o and
+//     d as 16-byte coalesced loads into shared memory; sparser warps load
+//     their live rays' 6 floats alone, so a sparse wavefront reads o and d
+//     of the live rays only.
+//   - Any hit: one byte a ray, the ray's lane leaves its loop at the first
+//     hit, and a block whose rays are all done skips its remaining tiles.
+//   - Optional per-ray counters (pairs tested, pairs past the edge-sign
+//     test) for the bound; the main path passes null pointers.
 //
-// Numerics: the per-pair test is watertight.cuh's, written with __fmul_rn/
-//   __fadd_rn/__fsub_rn/__fdiv_rn, which nvcc never contracts into FMA, in
-//   exactly the operation order of the plain PyTorch version
-//   (mesh_intersect_kernel.watertight), so the two agree bit for bit. The
+// Numerics: the per-pair test is watertight.cuh's, in its three stages, bit
+//   for bit the plain version's (mesh_intersect_kernel.watertight). The
 //   Dekker split uses 4097 (2^12 + 1), the float32 factor of ops/shapes.py,
-//   not the 0x10001 of the TPU kernel. Each
-//   triangle's hit is decided against the ray's own t_max; the winner is
-//   the smallest t with a strict '<', so the lowest index wins exact ties.
+//   not the 0x10001 of the TPU kernel. Each triangle's hit is decided
+//   against the ray's own t_max; the winner is the smallest t, and the
+//   lowest index among exact ties, as the one-piece loop with a strict '<'
+//   in index order gives. Any hit is the OR of the same per-triangle
+//   predicate, so it equals the closest hit's id >= 0.
+
+#include <stdint.h>
 
 #include "watertight.cuh"
 
@@ -37,82 +68,332 @@ namespace {
 
 using namespace crt;
 
-constexpr int kThreads = 256;
-constexpr int kTile = 256;
+#ifndef CRT_MESH_THREADS
+#define CRT_MESH_THREADS 256
+#endif
+constexpr int kThreads = CRT_MESH_THREADS;  // rays per block, one a thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = kThreads;          // triangles per staged tile
+constexpr int kRow = 3;                  // float4 per permuted triangle row
+constexpr int kSlot = 3 * kRow;          // float4 per staged triangle
+constexpr int kDenseWarp = 8;            // live rays that make a warp stage
+constexpr unsigned kFull = 0xffffffffu;
+#ifndef CRT_MESH_UNROLL
+#define CRT_MESH_UNROLL 2
+#endif
+#ifndef CRT_MESH_MIN_BLOCKS
+#define CRT_MESH_MIN_BLOCKS 4
+#endif
+#define CRT_PRAGMA(x) _Pragma(#x)
+#define CRT_UNROLL(n) CRT_PRAGMA(unroll n)
 
-__global__ void __launch_bounds__(kThreads)
+struct Outputs {
+  float* t;
+  int* idx;
+  float* b1;
+  float* b2;
+  unsigned char* hit;
+  int* tests;
+  int* passed;
+};
+
+template <bool kAnyHit>
+__device__ __forceinline__ void write_ray(const Outputs& out, int i, float t,
+                                          int idx, float b1, float b2,
+                                          int tests, int passed) {
+  if (kAnyHit) {
+    out.hit[i] = idx >= 0 ? 1 : 0;
+  } else {
+    out.t[i] = t;
+    out.idx[i] = idx;
+    out.b1[i] = b1;
+    out.b2[i] = b2;
+  }
+  if (out.tests) out.tests[i] = tests;
+  if (out.passed) out.passed[i] = passed;
+}
+
+// v's coordinates in the axis order of permutation p (0: x y z; 1, the
+// dominant axis x: y z x; 2, dominant y: z x y), as Ray's perm orders them.
+__device__ __forceinline__ void permuted(int p, float x, float y, float z,
+                                         float& px, float& py, float& pz) {
+  px = p == 0 ? x : (p == 1 ? y : z);
+  py = p == 0 ? y : (p == 1 ? z : x);
+  pz = p == 0 ? z : (p == 1 ? x : y);
+}
+
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kThreads, CRT_MESH_MIN_BLOCKS)
 mesh_intersect_kernel(const float* __restrict__ o, const float* __restrict__ d,
                       const float* __restrict__ tmax,
                       const float* __restrict__ tris,
-                      const float* __restrict__ mask, int n, int f,
-                      float* __restrict__ t_out, int* __restrict__ idx_out,
-                      float* __restrict__ b1_out, float* __restrict__ b2_out) {
-  __shared__ float s_tri[10][kTile];
+                      const unsigned char* __restrict__ mask, int n, int f,
+                      Outputs out, const int* __restrict__ live_count,
+                      const int* __restrict__ queue) {
+  // Staged triangles: slot s, permutation p is s_tri[s * kSlot + p * kRow].
+  extern __shared__ float4 s_tri[];
+  __shared__ int s_id[kTile];               // triangle id of each slot
+  __shared__ int s_count[2][kWarps];        // kept triangles, live rays
+  __shared__ int s_live[kThreads];          // the block's live rays
+  __shared__ bool s_dense[kWarps];          // the warp staged its o and d
+  __shared__ __align__(16) float s_o[3 * kThreads];
+  __shared__ __align__(16) float s_d[3 * kThreads];
 
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = i < n;
-  const int r = active ? i : 0;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int first = blockIdx.x * kThreads;
+#ifdef CRT_MESH_QUEUE
+  const int n_queued = *live_count;
+  if (first >= n_queued) return;  // the whole block: no live ray left
+  const bool live = false;
+  const unsigned live_bits = 0u;
+#else
+  const int i = first + tid;
+  const bool live = i < n && __ldg(&tmax[i]) > 0.0f;
+  if (i < n && !live) {
+    write_ray<kAnyHit>(out, i, CUDART_INF_F, -1, 0.0f, 0.0f, 0, 0);
+  }
+  const unsigned live_bits = __ballot_sync(kFull, live);
+  if (lane == 0) s_count[1][warp] = __popc(live_bits);
 
-  const Ray ray = make_ray(o[3 * r], o[3 * r + 1], o[3 * r + 2], d[3 * r],
-                           d[3 * r + 1], d[3 * r + 2]);
-  const float tm = tmax[r];
+  // A dense, fully in-range warp stages its 32 rays' o and d (96 floats
+  // each, 16-byte aligned when the tensors are) with 16-byte loads.
+  const int wfirst = first + warp * 32;
+  const bool dense = __popc(live_bits) >= kDenseWarp && wfirst + 32 <= n &&
+                     ((reinterpret_cast<uintptr_t>(o) |
+                       reinterpret_cast<uintptr_t>(d)) & 15u) == 0;
+  if (dense && lane < 24) {
+    const float4* go = reinterpret_cast<const float4*>(o + 3 * wfirst);
+    const float4* gd = reinterpret_cast<const float4*>(d + 3 * wfirst);
+    reinterpret_cast<float4*>(s_o + 96 * warp)[lane] = __ldg(go + lane);
+    reinterpret_cast<float4*>(s_d + 96 * warp)[lane] = __ldg(gd + lane);
+  }
+  if (lane == 0) s_dense[warp] = dense;
+#endif
 
-  float best_t = CUDART_INF_F;
-  int best_i = -1;
-  float best_b1 = 0.0f, best_b2 = 0.0f;
+  int ray = -1;              // the ray this thread holds, -1 when none
+  Ray r{};
+  float opx = 0.0f, opy = 0.0f, opz = 0.0f, tm = 0.0f;
+  int perm_row = 0;          // float4 offset of the ray's permutation
+  float best_t = CUDART_INF_F, best_b1 = 0.0f, best_b2 = 0.0f;
+  int best_i = -1, tests = 0, passed = 0;
+  bool done = false;         // any hit: the ray has hit
 
-  for (int base = 0; base < f; base += kTile) {
-    __syncthreads();
-    for (int k = threadIdx.x; k < kTile; k += kThreads) {
-      const int j = base + k;
-      if (j < f) {
-#pragma unroll
-        for (int c = 0; c < 9; ++c) s_tri[c][k] = tris[c * f + j];
-        s_tri[9][k] = mask ? mask[j] : 1.0f;
-      }
+  // Stage 1 of the ray against staged slot k (its permutation's row).
+  auto edge = [&](int k, Pair& pr) {
+    const float4* q = s_tri + k * kSlot + perm_row;
+    const float4 q0 = q[0], q1 = q[1], q2 = q[2];
+    return edge_stage(r, sub(q0.x, opx), sub(q0.y, opy), sub(q0.z, opz),
+                      sub(q0.w, opx), sub(q1.x, opy), sub(q1.y, opz),
+                      sub(q1.z, opx), sub(q1.w, opy), sub(q2.x, opz), pr);
+  };
+
+  const int f_tiles = f > 0 ? f : 1;  // one pass even without triangles
+  for (int base = 0; base < f_tiles; base += kTile) {
+    const int j = base + tid;
+    const bool keep = tid < kTile && j < f && (mask == nullptr || mask[j]);
+    const unsigned keep_bits = __ballot_sync(kFull, keep);
+    if (lane == 0) s_count[0][warp] = __popc(keep_bits);
+    // Every thread is done with the previous tile's slots; any hit leaves
+    // the loop when no ray of the block is still looking.
+    const bool busy = ray >= 0 && !done;
+    if (!__syncthreads_or(busy || base == 0)) break;
+
+    int slot = 0, cnt = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = s_count[0][w];
+      slot += w < warp ? c : 0;
+      cnt += c;
     }
-    __syncthreads();
-    if (!active) continue;
-    const int cnt = min(kTile, f - base);
-    for (int k = 0; k < cnt; ++k) {
-      if (!(s_tri[9][k] > 0.0f)) continue;
+    if (keep) {
+      slot += __popc(keep_bits & below);
       float v[9];
 #pragma unroll
-      for (int c = 0; c < 9; ++c) v[c] = s_tri[c][k];
-      float t, b1, b2;
-      const bool hit = watertight(ray, tm, v, t, b1, b2);
-      if (hit && t < best_t) {
-        best_t = t;
-        best_i = base + k;
-        best_b1 = b1;
-        best_b2 = b2;
+      for (int c = 0; c < 9; ++c) v[c] = __ldg(&tris[c * f + j]);
+      float4* row = s_tri + slot * kSlot;
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        float ax, ay, az, bx, by, bz, cx, cy, cz;
+        permuted(p, v[0], v[1], v[2], ax, ay, az);
+        permuted(p, v[3], v[4], v[5], bx, by, bz);
+        permuted(p, v[6], v[7], v[8], cx, cy, cz);
+        row[p * kRow] = make_float4(ax, ay, az, bx);
+        row[p * kRow + 1] = make_float4(by, bz, cx, cy);
+        row[p * kRow + 2] = make_float4(cz, 0.0f, 0.0f, 0.0f);
+      }
+      s_id[slot] = j;
+    }
+    int n_live = 0;
+    if (base == 0) {
+      int at = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        const int c = s_count[1][w];
+        at += w < warp ? c : 0;
+        n_live += c;
+      }
+      if (live) s_live[at + __popc(live_bits & below)] = tid;
+    }
+    __syncthreads();
+
+#if defined(CRT_MESH_QUEUE)
+    if (base == 0 && first + tid < n_queued) {
+      ray = queue[first + tid];
+      const float* ro = o + 3 * ray;
+      const float* rd = d + 3 * ray;
+#else
+#ifdef CRT_MESH_GATE_ONLY
+    if (base == 0 && live) {
+      const int k = tid;
+#else
+    if (base == 0 && tid < n_live) {
+      const int k = s_live[tid];
+#endif
+      ray = first + k;
+      const bool staged = s_dense[k >> 5];
+      const float* ro = staged ? s_o + 3 * k : o + 3 * ray;
+      const float* rd = staged ? s_d + 3 * k : d + 3 * ray;
+#endif
+      r = make_ray(ro[0], ro[1], ro[2], rd[0], rd[1], rd[2]);
+      const int p = r.kz_x ? 1 : (r.kz_y ? 2 : 0);
+      perm(r, r.ox, r.oy, r.oz, opx, opy, opz);
+      perm_row = p * kRow;
+      tm = __ldg(&tmax[ray]);
+    }
+    if (ray < 0 || done) continue;
+
+    for (int k0 = 0; k0 < cnt && !done; k0 += 32) {
+      const int m = min(32, cnt - k0);
+      // Pass 1, branch-free: the edge-sign and range tests of up to 32
+      // triangles, two pairs in flight, as bit masks.
+      unsigned side = 0u, cand = 0u;
+      CRT_UNROLL(CRT_MESH_UNROLL)
+      for (int b = 0; b < m; ++b) {
+        Pair pr;
+        const bool s1 = edge(k0 + b, pr);
+#ifdef CRT_MESH_NORANGE
+        const bool s2 = true;
+#else
+        const bool s2 = range_stage(r, tm, pr);
+#endif
+        side |= static_cast<unsigned>(s1) << b;
+        cand |= static_cast<unsigned>(s1 && s2) << b;
+      }
+      // Pass 2, in triangle order: the candidates again (the same values),
+      // then the costly stage.
+      unsigned rest = cand;
+      int hit_bit = -1;
+      while (rest != 0u) {
+        const int b = __ffs(rest) - 1;
+        rest &= rest - 1u;
+        Pair pr;
+        edge(k0 + b, pr);
+        float t, b1, b2;
+        if (!range_stage(r, tm, pr) || !hit_stage(pr, t, b1, b2)) continue;
+        if (kAnyHit) {
+          hit_bit = b;
+          break;
+        }
+        if (t < best_t) {  // triangle order: the lowest index wins ties
+          best_t = t;
+          best_i = s_id[k0 + b];
+          best_b1 = b1;
+          best_b2 = b2;
+        }
+      }
+      if (hit_bit >= 0) {
+        done = true;
+        tests += hit_bit + 1;
+        passed += __popc(side & ((2u << hit_bit) - 1u));
+      } else {
+        tests += m;
+        passed += __popc(side);
       }
     }
   }
-  if (active) {
-    t_out[i] = best_t;
-    idx_out[i] = best_i;
-    b1_out[i] = best_b1;
-    b2_out[i] = best_b2;
+  if (ray < 0) return;
+  write_ray<kAnyHit>(out, ray, best_t, kAnyHit ? (done ? 0 : -1) : best_i,
+                     best_b1, best_b2, tests, passed);
+}
+
+// The miss of every ray with t_max <= 0 (or NaN); the others' indices go to
+// queue[0 .. *live), each block's in ray order at a slot taken from *live.
+template <bool kAnyHit>
+__global__ void __launch_bounds__(kThreads)
+mesh_live_rays(const float* __restrict__ tmax, int n, Outputs out,
+               int* __restrict__ live, int* __restrict__ queue) {
+  __shared__ int s_warp[kWarps];
+  __shared__ int s_base;
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const unsigned lane = threadIdx.x & 31u, warp = threadIdx.x >> 5;
+  const bool alive = i < n && __ldg(&tmax[i]) > 0.0f;
+  if (i < n && !alive) {
+    write_ray<kAnyHit>(out, i, CUDART_INF_F, -1, 0.0f, 0.0f, 0, 0);
   }
+  const unsigned m = __ballot_sync(kFull, alive);
+  if (lane == 0) s_warp[warp] = __popc(m);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int c = s_warp[w];
+      s_warp[w] = total;
+      total += c;
+    }
+    s_base = total > 0 ? atomicAdd(live, total) : 0;
+  }
+  __syncthreads();
+  if (alive) queue[s_base + s_warp[warp] + __popc(m & ((1u << lane) - 1u))] = i;
+}
+
+template <bool kAnyHit>
+int launch(const float* o, const float* d, const float* tmax,
+           const float* tris, const unsigned char* mask, int n, int f,
+           const Outputs& out, int* scratch, void* stream) {
+  if (n <= 0) return 0;
+  const int slots = f < kTile ? (f > 0 ? f : 1) : kTile;
+  const size_t smem = static_cast<size_t>(slots) * kSlot * sizeof(float4);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (n + kThreads - 1) / kThreads;
+#ifdef CRT_MESH_QUEUE
+  mesh_live_rays<kAnyHit><<<blocks, kThreads, 0, s>>>(tmax, n, out, scratch,
+                                                      scratch + 1);
+#endif
+  mesh_intersect_kernel<kAnyHit><<<blocks, kThreads, smem, s>>>(
+      o, d, tmax, tris, mask, n, f, out, scratch, scratch + 1);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C interface, bound with ctypes. Pointers are device pointers; `mask` may
-// be null (every triangle enabled). Launches on `stream` and returns
-// cudaGetLastError() of the launch (0 on success). Does not synchronise.
+// C interface, bound with ctypes. Pointers are device pointers: o, d (n, 3)
+// float32, tmax (n,), tris (9, f) float32 [p0 xyz, p1 xyz, p2 xyz] rows,
+// mask (f,) bytes, nonzero to keep a triangle, or null (every triangle
+// kept). tests_out and passed_out (n,) int32 may be null: pairs tested and
+// pairs past the edge-sign test, per ray. Each launches one kernel on
+// `stream` and returns cudaGetLastError() of the launch (0 on success).
+// Neither synchronises.
 extern "C" int crt_mesh_intersect(const float* o, const float* d,
                                   const float* tmax, const float* tris,
-                                  const float* mask, int n, int f,
+                                  const unsigned char* mask, int n, int f,
                                   float* t_out, int* idx_out, float* b1_out,
-                                  float* b2_out, void* stream) {
-  if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  mesh_intersect_kernel<<<blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      o, d, tmax, tris, mask, n, f, t_out, idx_out, b1_out, b2_out);
-  return static_cast<int>(cudaGetLastError());
+                                  float* b2_out, int* tests_out,
+                                  int* passed_out, int* scratch,
+                                  void* stream) {
+  const Outputs out{t_out, idx_out, b1_out, b2_out, nullptr, tests_out,
+                    passed_out};
+  return launch<false>(o, d, tmax, tris, mask, n, f, out, scratch, stream);
+}
+
+// Any hit: hit_out (n,) bytes, 1 where a triangle is hit in (0, t_max).
+extern "C" int crt_mesh_anyhit(const float* o, const float* d,
+                               const float* tmax, const float* tris,
+                               const unsigned char* mask, int n, int f,
+                               unsigned char* hit_out, int* tests_out,
+                               int* passed_out, int* scratch, void* stream) {
+  const Outputs out{nullptr, nullptr, nullptr, nullptr, hit_out, tests_out,
+                    passed_out};
+  return launch<true>(o, d, tmax, tris, mask, n, f, out, scratch, stream);
 }
 
 extern "C" const char* crt_error_string(int err) {

@@ -5,7 +5,9 @@ force or in an octree.
 On a CUDA device every mesh query goes through a hand-written kernel: the
 brute mesh through ``ops/mesh_intersect_kernel.py`` (the reference needs
 ``use_pallas=True`` for its kernel), the octree through
-``ops/octree_kernel.py`` in its closest-hit and any-hit modes. On the CPU
+``ops/octree_kernel.py``, each in its closest-hit and any-hit modes (the
+reference's brute any hit is its closest hit's ``id >= 0``; the port's
+any-hit kernel gives the same bit and stops at the first hit). On the CPU
 the same wrappers run the kernels' plain versions.
 """
 
@@ -231,7 +233,9 @@ def scene_anyhit(scene: Scene, o, d, t_max):
         return hit
     t_m = torch.where(hit, torch.zeros_like(t_max), t_max)
     if scene.packed_octree is None:
-        return hit | (_mesh_closest_hit(scene, o, d, t_m)[1] >= 0)
+        return hit | mik.mesh_anyhit(o.contiguous(), d.contiguous(),
+                                     t_m.contiguous(), scene.mesh,
+                                     scene.tri_mask)
     of, df, tf = o.reshape(-1, 3), d.reshape(-1, 3), t_m.reshape(-1)
     order = _packet_order(of, df, tf > 0.0)
     h = okern.octree_anyhit(of[order], df[order], tf[order],

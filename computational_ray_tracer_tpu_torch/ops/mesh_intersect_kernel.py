@@ -1,19 +1,25 @@
-"""Brute-force mesh closest hit: the CUDA kernel, its wrapper and its plain
-PyTorch version.
+"""Brute-force mesh closest hit and any hit: the CUDA kernel, its wrappers
+and their plain PyTorch versions.
 
 Port of ``computational_ray_tracer_tpu/ops/pallas_intersect.py`` (the
 ``_intersect_kernel`` Pallas TPU kernel) and of the jnp
-``triangle.mesh_intersect_brute`` it mirrors. The kernel source is
-``csrc/mesh_intersect.cu``; ``kernels/build.py`` compiles it with nvcc for
-``sm_90a`` at first use.
+``triangle.mesh_intersect_brute`` / ``mesh_anyhit_brute`` it mirrors. The
+kernel source is ``csrc/mesh_intersect.cu``; ``kernels/build.py`` compiles
+it with nvcc for ``sm_90a`` at first use.
 
-- :func:`mesh_intersect_plain` is the plain version: the watertight test in
-  triangle-major layout over chunks of rays, with the float32 Dekker split
-  of ``ops/shapes.py``. The CUDA kernel performs the same float32 operations
-  in the same order, without FMA contraction, so the two agree bit for bit.
-- :func:`mesh_intersect` is the wrapper the scene calls: for CPU tensors it
-  runs the plain version; for CUDA tensors it launches the kernel (or
-  raises). ``LAUNCHES`` counts kernel launches.
+- :func:`mesh_intersect_plain` and :func:`mesh_anyhit_plain` are the plain
+  versions: the watertight test in triangle-major layout over chunks of
+  rays, with the float32 Dekker split of ``ops/shapes.py``. The CUDA kernel
+  performs the same float32 operations in the same order, without FMA
+  contraction, so the two agree bit for bit.
+- :func:`mesh_intersect` (closest hit) and :func:`mesh_anyhit` (occlusion)
+  are the wrappers the scene calls: for CPU tensors they run the plain
+  versions; for CUDA tensors they launch the kernel (or raise).
+  ``LAUNCHES`` and ``LAUNCHES_ANYHIT`` count kernel launches.
+- With ``stats=True`` each also returns two per-ray counters, the pairs
+  tested and the pairs past the edge-sign test: only live rays (t_max > 0)
+  test pairs, masked triangles are never tested, and any hit stops at the
+  ray's first hit in triangle order.
 
 Outputs are detached (hit ids and barycentrics are sampling decisions; the
 reference gives them zero tangents).
@@ -29,12 +35,15 @@ from computational_ray_tracer_tpu_torch.ops.shapes import (
     difference_of_products, fp_gamma)
 
 LAUNCHES = 0
+LAUNCHES_ANYHIT = 0
 
 # fp32 operations (add, sub, mul, div, min/max; comparisons not counted)
-# per ray/triangle pair of :func:`watertight`, per-ray set-up excluded:
-# translate 9, shear 12, three DifferenceOfProducts with their Dekker
-# splits 3 x 37, det 2, z scale 3, t_scaled 5, range product 1, 1/det 1,
+# per ray/triangle pair of :func:`watertight`, per-ray set-up excluded.
+# A pair that fails the edge-sign test needs translate 9, shear 12 and
+# three DifferenceOfProducts with their Dekker splits 3 x 37; one that
+# passes it also det 2, z scale 3, t_scaled 5, range product 1, 1/det 1,
 # t 1, error bound 28, barycentrics 2.
+EDGE_FLOPS = 132
 PAIR_FLOPS = 175
 
 # Pairs (rays x triangles) per chunk of the plain version: bounds the
@@ -72,6 +81,12 @@ def watertight(o, ray, tm, tri):
     gamma-bounded t. Returns (t, b1, b2) with t = inf where the pair does
     not hit. The CUDA kernels (csrc/watertight.cuh) do these float32
     operations in this order."""
+    return _watertight(o, ray, tm, tri)[:3]
+
+
+def _watertight(o, ray, tm, tri):
+    """:func:`watertight`, then whether each pair passes the edge-sign
+    test."""
     kz_x, kz_y, inv_dz, sx, sy = ray
 
     def sheared(k):
@@ -116,47 +131,82 @@ def watertight(o, ray, tm, tri):
                      + delta_z * max_e) * inv_det.abs()
     hit = same_side & nonzero & in_range & (t > delta_t)
     return (torch.where(hit, t, torch.full_like(t, math.inf)),
-            e1 * inv_det, e2 * inv_det)
+            e1 * inv_det, e2 * inv_det, same_side)
 
 
-def _closest_hit_tri_major(o, d, tm, tris, mask):
+def _tri_major(o, d, tm, tris, keep, anyhit, stats):
     """Watertight test of rays (n,) against triangles (F,) as (F, n)
-    tensors; returns (t, idx, b1, b2), each (n,), with inf/-1/0/0 on a
-    miss and the lowest index among exact ties."""
-    t, e1_det, e2_det = watertight(o.unbind(-1), ray_shear(d), tm,
-                                   [c[:, None] for c in tris])
-    if mask is not None:
-        t = torch.where(mask[:, None], t, torch.full_like(t, math.inf))
-    j = torch.argmin(t, dim=0)                          # first of equal mins
-    t_best = torch.gather(t, 0, j[None])[0]
-    found = torch.isfinite(t_best)
-    zero = torch.zeros_like(t_best)
-    b1 = torch.where(found, torch.gather(e1_det, 0, j[None])[0], zero)
-    b2 = torch.where(found, torch.gather(e2_det, 0, j[None])[0], zero)
-    idx = torch.where(found, j, torch.full_like(j, -1)).to(torch.int32)
-    return t_best, idx, b1, b2
+    tensors. Returns (t, idx, b1, b2), each (n,), with inf/-1/0/0 on a miss
+    and the lowest index among exact ties, or with ``anyhit`` (hit,);
+    then, with ``stats``, the (tests, passed) counters."""
+    t, e1_det, e2_det, side = _watertight(o.unbind(-1), ray_shear(d), tm,
+                                          [c[:, None] for c in tris])
+    if keep is not None:
+        t = torch.where(keep[:, None], t, torch.full_like(t, math.inf))
+    hits = torch.isfinite(t)
+    if anyhit:
+        out = (hits.any(0),)
+    else:
+        j = torch.argmin(t, dim=0)                      # first of equal mins
+        t_best = torch.gather(t, 0, j[None])[0]
+        found = torch.isfinite(t_best)
+        zero = torch.zeros_like(t_best)
+        b1 = torch.where(found, torch.gather(e1_det, 0, j[None])[0], zero)
+        b2 = torch.where(found, torch.gather(e2_det, 0, j[None])[0], zero)
+        idx = torch.where(found, j, torch.full_like(j, -1)).to(torch.int32)
+        out = (t_best, idx, b1, b2)
+    if not stats:
+        return out
+    # The pairs a ray tests: every kept triangle of a live ray; any hit
+    # stops at the first hit in triangle order.
+    tested = (tm > 0)[None].expand_as(t)
+    if keep is not None:
+        tested = tested & keep[:, None]
+    if anyhit:
+        f = t.shape[0]
+        first = torch.where(hits.any(0), hits.to(torch.int32).argmax(0), f)
+        tested = tested & (torch.arange(f, device=t.device)[:, None]
+                           <= first[None])
+    return out + (tested.sum(0).to(torch.int32),
+                  (tested & side).sum(0).to(torch.int32))
 
 
-def mesh_intersect_plain(o, d, t_max, tri_verts, tri_mask=None, chunk=None):
-    """Plain PyTorch closest hit of rays o/d (..., 3), t_max (...) against
-    triangles ``tri_verts`` (9, F). Returns (t, idx, b1, b2, count) with
-    t = inf and idx = -1 on a miss. ``chunk`` rays are tested at a time."""
+def _plain(o, d, t_max, tri_verts, tri_mask, chunk, anyhit, stats):
+    """The plain version over chunks of ``chunk`` rays; outputs shaped as
+    the rays' batch."""
     batch = o.shape[:-1]
     o2 = o.reshape(-1, 3)
     d2 = d.reshape(-1, 3)
     tm = t_max.reshape(-1)
-    n = o2.shape[0]
     f = tri_verts.shape[1]
-    mask = None if tri_mask is None else tri_mask.to(torch.bool)
+    keep = None if tri_mask is None else tri_mask.to(torch.bool)
     if chunk is None:
         chunk = max(1, _PLAIN_PAIRS_PER_CHUNK // max(f, 1))
-    outs = [_closest_hit_tri_major(o2[s:s + chunk], d2[s:s + chunk],
-                                   tm[s:s + chunk], tri_verts, mask)
-            for s in range(0, n, chunk)]
-    t, idx, b1, b2 = (torch.cat(x) for x in zip(*outs))
-    count = torch.full(batch, f, dtype=torch.int32, device=o.device)
-    return (t.reshape(batch), idx.reshape(batch), b1.reshape(batch),
-            b2.reshape(batch), count)
+    outs = [_tri_major(o2[s:s + chunk], d2[s:s + chunk], tm[s:s + chunk],
+                       tri_verts, keep, anyhit, stats)
+            for s in range(0, o2.shape[0], chunk)]
+    return tuple(torch.cat(x).reshape(batch) for x in zip(*outs))
+
+
+def mesh_intersect_plain(o, d, t_max, tri_verts, tri_mask=None, chunk=None,
+                         stats=False):
+    """Plain PyTorch closest hit of rays o/d (..., 3), t_max (...) against
+    triangles ``tri_verts`` (9, F). Returns (t, idx, b1, b2, count) with
+    t = inf and idx = -1 on a miss, then, with ``stats``, the per-ray
+    (tests, passed) counters. ``chunk`` rays are tested at a time."""
+    out = _plain(o, d, t_max, tri_verts, tri_mask, chunk, False, stats)
+    count = torch.full(o.shape[:-1], tri_verts.shape[1], dtype=torch.int32,
+                       device=o.device)
+    return out[:4] + (count,) + out[4:]
+
+
+def mesh_anyhit_plain(o, d, t_max, tri_verts, tri_mask=None, chunk=None,
+                      stats=False):
+    """Plain PyTorch occlusion: is any triangle hit in (0, t_max)? (...,)
+    bool, equal to ``mesh_intersect_plain(...)[1] >= 0``; then, with
+    ``stats``, the per-ray (tests, passed) counters."""
+    out = _plain(o, d, t_max, tri_verts, tri_mask, chunk, True, stats)
+    return out if stats else out[0]
 
 
 def check_tensor(name, x, shape, dtype, device):
@@ -171,9 +221,11 @@ def check_tensor(name, x, shape, dtype, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def _launch(o, d, t_max, tri_verts, tri_mask):
-    """Launch the CUDA kernel on the current stream; outputs (n,) each."""
-    global LAUNCHES
+def _launch(anyhit, o, d, t_max, tri_verts, tri_mask, stats):
+    """Launch the CUDA kernel on the current stream: (t, idx, b1, b2) or,
+    with ``anyhit``, (hit,); then (tests, passed), None unless ``stats``.
+    Each output is (n,)."""
+    global LAUNCHES, LAUNCHES_ANYHIT
     from computational_ray_tracer_tpu_torch.kernels import build
     dev = o.device
     n = o.numel() // 3
@@ -184,41 +236,80 @@ def _launch(o, d, t_max, tri_verts, tri_mask):
     check_tensor("tri_verts", tri_verts, (9, f), torch.float32, dev)
     mask_ptr = None
     if tri_mask is not None:
-        check_tensor("tri_mask", tri_mask, (f,), torch.float32, dev)
+        check_tensor("tri_mask", tri_mask, (f,), torch.bool, dev)
         mask_ptr = tri_mask.data_ptr()
     lib = build.load_library()
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    idx = torch.empty(n, dtype=torch.int32, device=dev)
-    b1 = torch.empty(n, dtype=torch.float32, device=dev)
-    b2 = torch.empty(n, dtype=torch.float32, device=dev)
-    err = lib.crt_mesh_intersect(
-        o.data_ptr(), d.data_ptr(), t_max.data_ptr(), tri_verts.data_ptr(),
-        mask_ptr, n, f, t.data_ptr(), idx.data_ptr(), b1.data_ptr(),
-        b2.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    empty = lambda dtype: torch.empty(n, dtype=dtype, device=dev)
+    counters = (empty(torch.int32), empty(torch.int32)) if stats \
+        else (None, None)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    scratch[:1].zero_()
+    if anyhit:
+        out = (empty(torch.bool),)
+        err = lib.crt_mesh_anyhit(
+            o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
+            tri_verts.data_ptr(), mask_ptr, n, f, out[0].data_ptr(),
+            *map(ptr, counters), scratch.data_ptr(), stream)
+    else:
+        out = (empty(torch.float32), empty(torch.int32),
+               empty(torch.float32), empty(torch.float32))
+        err = lib.crt_mesh_intersect(
+            o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
+            tri_verts.data_ptr(), mask_ptr, n, f,
+            *(x.data_ptr() for x in out), *map(ptr, counters),
+            scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"mesh_intersect kernel launch failed: CUDA error "
                            f"{err} ({build.error_string(err)})")
-    LAUNCHES += 1
-    return t, idx, b1, b2
+    if anyhit:
+        LAUNCHES_ANYHIT += 1
+    else:
+        LAUNCHES += 1
+    return out + counters
 
 
-def mesh_intersect(o, d, t_max, mesh, tri_mask=None):
+def _device_check(name, o):
+    if o.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {o.device}")
+
+
+def mesh_intersect(o, d, t_max, mesh, tri_mask=None, stats=False):
     """Closest hit of rays against ``mesh`` (same returns as
-    ``triangle.mesh_intersect_brute``: t, tri_idx, b1, b2, count).
+    ``triangle.mesh_intersect_brute``: t, tri_idx, b1, b2, count), then,
+    with ``stats``, the per-ray (tests, passed) counters.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel; a
     tensor the kernel does not take (dtype, layout, device) raises."""
     if o.device.type == "cpu":
-        return mesh_intersect_plain(o, d, t_max, mesh.tri_verts, tri_mask)
-    if o.device.type != "cuda":
-        raise ValueError(f"mesh_intersect: unsupported device {o.device}")
+        return mesh_intersect_plain(o, d, t_max, mesh.tri_verts, tri_mask,
+                                    stats=stats)
+    _device_check("mesh_intersect", o)
     batch = o.shape[:-1]
-    mask = None if tri_mask is None else tri_mask.to(torch.float32)
     with torch.no_grad():
-        t, idx, b1, b2 = _launch(o.reshape(-1, 3), d.reshape(-1, 3),
-                                 t_max.reshape(-1), mesh.tri_verts, mask)
-    f = mesh.n_triangles
-    count = torch.full(batch, f, dtype=torch.int32, device=o.device)
-    return (t.reshape(batch), idx.reshape(batch), b1.reshape(batch),
-            b2.reshape(batch), count)
+        out = _launch(False, o.reshape(-1, 3), d.reshape(-1, 3),
+                      t_max.reshape(-1), mesh.tri_verts, tri_mask, stats)
+    count = torch.full_like(out[1], mesh.n_triangles)
+    out = out[:4] + (count,) + (out[4:] if stats else ())
+    return tuple(x.reshape(batch) for x in out)
 
+
+def mesh_anyhit(o, d, t_max, mesh, tri_mask=None, stats=False):
+    """Occlusion of rays against ``mesh``: is any triangle hit in
+    (0, t_max)? (...,) bool, equal to ``mesh_intersect(...)[1] >= 0``;
+    then, with ``stats``, the per-ray (tests, passed) counters. The kernel
+    stops at a ray's first hit and writes one byte a ray.
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel; a
+    tensor the kernel does not take (dtype, layout, device) raises."""
+    if o.device.type == "cpu":
+        return mesh_anyhit_plain(o, d, t_max, mesh.tri_verts, tri_mask,
+                                 stats=stats)
+    _device_check("mesh_anyhit", o)
+    batch = o.shape[:-1]
+    with torch.no_grad():
+        out = _launch(True, o.reshape(-1, 3), d.reshape(-1, 3),
+                      t_max.reshape(-1), mesh.tri_verts, tri_mask, stats)
+    return (tuple(x.reshape(batch) for x in out) if stats
+            else out[0].reshape(batch))

@@ -94,8 +94,9 @@ def mesh_intersect_brute(o, d, t_max, mesh: MeshData, tri_mask=None,
 
 
 def mesh_anyhit_brute(o, d, t_max, mesh: MeshData, tri_mask=None):
-    """Boolean any-hit against all triangles (plain PyTorch)."""
-    return mesh_intersect_brute(o, d, t_max, mesh, tri_mask)[1] >= 0
+    """Boolean any-hit against all triangles (plain PyTorch), equal to
+    ``mesh_intersect_brute(...)[1] >= 0``."""
+    return mik.mesh_anyhit_plain(o, d, t_max, mesh.tri_verts, tri_mask)
 
 
 def mesh_surface(o, d, t, tri_idx, b1, b2, mesh: MeshData):

@@ -1,8 +1,10 @@
-"""The port's mesh intersection (plain version of the CUDA kernel) against
-the JAX reference's jnp brute force and its Pallas kernel (interpret mode),
-on the soup, Cornell and mask/t_max cases of tests/test_pallas_intersect.py
-with that file's tolerances; sphere and surface parity; and, on a CUDA
-machine only, the kernel against its plain version."""
+"""The port's mesh intersection (plain versions of the CUDA kernel's two
+modes) against the JAX reference's jnp brute force and its Pallas kernel
+(interpret mode), on the soup, Cornell and mask/t_max cases of
+tests/test_pallas_intersect.py with that file's tolerances; dead rays and
+the per-ray counters against a numpy count; chip_smoke.py phase 4b's
+helpers on CPU tensors; sphere and surface parity; and, on a CUDA machine
+only, the kernel against its plain version."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -13,7 +15,9 @@ from computational_ray_tracer_tpu.ops import pallas_intersect as pk
 from computational_ray_tracer_tpu.ops import shapes as jshp
 from computational_ray_tracer_tpu.ops import triangle as jtri
 from computational_ray_tracer_tpu.utils import mesh_gen as jmesh_gen
+from computational_ray_tracer_tpu_torch.models import integrator as tinteg
 from computational_ray_tracer_tpu_torch.ops import mesh_intersect_kernel as mik
+from computational_ray_tracer_tpu_torch.ops import sensor as tsen
 from computational_ray_tracer_tpu_torch.ops import shapes as tshp
 from computational_ray_tracer_tpu_torch.ops import triangle as ttri
 from computational_ray_tracer_tpu_torch.utils import mesh_gen as tmesh_gen
@@ -125,18 +129,18 @@ def test_chunking_and_anyhit_agree():
 def test_wrapper_runs_plain_on_cpu_and_counts_only_kernel_launches():
     pos, idx, o, d, tm, _ = _case("cornell")
     mesh = ttri.MeshData.build(pos, idx)
-    before = mik.LAUNCHES
-    out = mik.mesh_intersect(torch.tensor(o), torch.tensor(d),
-                             torch.tensor(tm), mesh)
-    ref = mik.mesh_intersect_plain(torch.tensor(o), torch.tensor(d),
-                                   torch.tensor(tm), mesh.tri_verts)
-    assert mik.LAUNCHES == before
+    args = (torch.tensor(o), torch.tensor(d), torch.tensor(tm))
+    before = (mik.LAUNCHES, mik.LAUNCHES_ANYHIT)
+    out = mik.mesh_intersect(*args, mesh)
+    ref = mik.mesh_intersect_plain(*args, mesh.tri_verts)
+    hit = mik.mesh_anyhit(*args, mesh)
+    assert (mik.LAUNCHES, mik.LAUNCHES_ANYHIT) == before
     for x, y in zip(out, ref):
         assert torch.equal(x, y)
-    with pytest.raises(ValueError):
-        mik.mesh_intersect(torch.tensor(o, device="meta"),
-                           torch.tensor(d, device="meta"),
-                           torch.tensor(tm, device="meta"), mesh)
+    assert torch.equal(hit, mik.mesh_anyhit_plain(*args, mesh.tri_verts))
+    for wrapper in (mik.mesh_intersect, mik.mesh_anyhit):
+        with pytest.raises(ValueError):
+            wrapper(*(x.to("meta") for x in args), mesh)
 
 
 def test_tri_verts_layout():
@@ -218,6 +222,167 @@ def test_sphere_intersect_and_surface():
     np.testing.assert_array_equal(sb.backface.numpy(), np.asarray(sa.backface))
 
 
+@pytest.mark.parametrize("name", CASES)
+def test_anyhit_plain_matches_closest_hit_jnp_and_pallas(name):
+    """mesh_anyhit_plain is the closest hit's id >= 0 of the port, of the
+    jnp brute force (its mesh_anyhit_brute) and of the Pallas kernel in
+    interpret mode, exactly."""
+    jargs, jmask, got, mask = _both(name)
+    pos, idx, o, d, tm, _ = _case(name)
+    mesh = ttri.MeshData.build(pos, idx)
+    tmask = None if mask is None else torch.tensor(mask)
+    hit = mik.mesh_anyhit_plain(torch.tensor(o), torch.tensor(d),
+                                torch.tensor(tm), mesh.tri_verts, tmask,
+                                chunk=100).numpy()
+    assert hit.dtype == np.bool_ and 0.0 < hit.mean() < 1.0
+    np.testing.assert_array_equal(hit, got[1] >= 0)
+    np.testing.assert_array_equal(
+        hit, np.asarray(jtri.mesh_anyhit_brute(*jargs, tri_mask=jmask)))
+    pallas = pk.mesh_intersect_pallas(*jargs, tri_mask=jmask, interpret=True)
+    np.testing.assert_array_equal(hit, np.asarray(pallas[1]) >= 0)
+
+
+@pytest.mark.parametrize("t_dead", [-1.0, 0.0])
+def test_dead_rays_miss_and_test_no_pair(t_dead):
+    """Rays with t_max <= 0 give (inf, -1, 0, 0), no occlusion and zero
+    counters; the live rays' results do not change."""
+    pos, idx, o, d, tm, _ = _case("cornell")
+    mesh = ttri.MeshData.build(pos, idx)
+    dead = np.arange(tm.shape[0]) % 3 != 0
+    tm_dead = np.where(dead, np.float32(t_dead), tm).astype(np.float32)
+    args = (torch.tensor(o), torch.tensor(d))
+    full = mik.mesh_intersect_plain(*args, torch.tensor(tm), mesh.tri_verts)
+    got = mik.mesh_intersect_plain(*args, torch.tensor(tm_dead),
+                                   mesh.tri_verts, stats=True)
+    hit, tests, passed = mik.mesh_anyhit_plain(
+        *args, torch.tensor(tm_dead), mesh.tri_verts, stats=True)
+    dead_t = torch.tensor(dead)
+    assert torch.isinf(got[0][dead_t]).all()
+    assert (got[1][dead_t] == -1).all()
+    assert (got[2][dead_t] == 0).all() and (got[3][dead_t] == 0).all()
+    assert not hit[dead_t].any()
+    for counter in (*got[5:], tests, passed):
+        assert (counter[dead_t] == 0).all()
+    for x, y in zip(got[:4], full[:4]):
+        assert torch.equal(x[~dead_t], y[~dead_t])
+    assert torch.equal(hit[~dead_t], full[1][~dead_t] >= 0)
+    assert (got[5][~dead_t] == 12).all() and got[1][~dead_t].ge(0).any()
+
+
+def _np_same_side(o, d, tri_verts):
+    """(F, n) edge-sign test in numpy float32: translate, permute to the
+    dominant axis, shear, the three DifferenceOfProducts (4097 split)."""
+    f32 = np.float32
+    ad = np.abs(d)
+    kz_x = (ad[:, 0] >= ad[:, 1]) & (ad[:, 0] >= ad[:, 2])
+    kz_y = ~kz_x & (ad[:, 1] >= ad[:, 2])
+    order = np.where(kz_x[:, None], [1, 2, 0],
+                     np.where(kz_y[:, None], [2, 0, 1], [0, 1, 2]))
+    dp = np.take_along_axis(d, order, 1)
+    inv = f32(1.0) / dp[:, 2]
+    sx, sy = -dp[:, 0] * inv, -dp[:, 1] * inv
+    f = tri_verts.shape[1]
+    idx = np.broadcast_to(order.T[:, None, :], (3, f, o.shape[0]))
+    xy = []
+    for k in range(3):
+        rel = tri_verts[3 * k:3 * k + 3, :, None] - o.T[:, None, :]
+        px, py, pz = np.take_along_axis(rel, idx, 0)
+        xy.append((px + sx * pz, py + sy * pz))
+
+    def err(a, b, ab):
+        split = lambda v: (v * f32(4097.0)) - (v * f32(4097.0) - v)
+        a_hi, b_hi = split(a), split(b)
+        a_lo, b_lo = a - a_hi, b - b_hi
+        return ((a_hi * b_hi - ab) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo
+
+    def dop(a, b, c, d_):
+        ab, cd = a * b, c * d_
+        return (ab - cd) + (err(a, b, ab) - err(c, d_, cd))
+
+    (ax, ay), (bx, by), (cx, cy) = xy
+    e = [dop(bx, cy, by, cx), dop(cx, ay, cy, ax), dop(ax, by, ay, bx)]
+    return (np.all([x >= 0 for x in e], 0)) | (np.all([x <= 0 for x in e], 0))
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_plain_counters_match_a_numpy_count(anyhit):
+    """The plain version's per-ray counters against a loop that walks each
+    live ray's kept triangles in order (any hit stops after its first hit)
+    and counts the pairs tested and those past the edge-sign test."""
+    pos, idx, o, d, tm, mask = _case("tmax_mask")
+    tm = np.where(np.arange(tm.shape[0]) % 5 == 0, np.float32(-1.0), tm)
+    mesh = ttri.MeshData.build(pos, idx)
+    tv = mesh.tri_verts
+    args = (torch.tensor(o), torch.tensor(d), torch.tensor(tm))
+    fn = mik.mesh_anyhit_plain if anyhit else mik.mesh_intersect_plain
+    tests, passed = fn(*args, tv, torch.tensor(mask), stats=True)[-2:]
+    side = _np_same_side(o, d, tv.numpy())
+    hit = np.stack([mik.mesh_intersect_plain(*args, tv[:, j:j + 1])[1]
+                    .numpy() >= 0 for j in range(tv.shape[1])])
+    want_tests = np.zeros(tm.shape[0], np.int32)
+    want_passed = np.zeros(tm.shape[0], np.int32)
+    for r in np.nonzero(tm > 0)[0]:
+        for j in np.nonzero(mask)[0]:
+            want_tests[r] += 1
+            want_passed[r] += side[j, r]
+            if anyhit and hit[j, r]:
+                break
+    np.testing.assert_array_equal(tests.numpy(), want_tests)
+    np.testing.assert_array_equal(passed.numpy(), want_passed)
+    assert 0 < want_passed.sum() < want_tests.sum()
+    if anyhit:
+        assert (want_tests < 50).any() and (want_tests[tm > 0] <= 50).all()
+
+
+def _smoke_on_host_clock(monkeypatch):
+    """chip_smoke, with the host clock in place of CUDA events."""
+    import time
+    import chip_smoke as cs
+
+    def host_timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "timed", host_timed)
+    for name in ("median_ms", "per_launch_ms"):
+        monkeypatch.setattr(cs, name, lambda fn, *a, **k: host_timed(fn)[1])
+    return cs
+
+
+def test_smoke_holds_each_mesh_launch_of_a_cornell_pass(monkeypatch):
+    """chip_smoke.py phase 4b's helpers on CPU tensors, with the host clock
+    in place of CUDA events: one Cornell pass makes its 8 brute-force
+    launches as (closest, any hit) per depth, each captured launch is held
+    to the plain version with its counters, and a launch's bound counts
+    the work of its live rays."""
+    from computational_ray_tracer_tpu_torch import entry
+    cs = _smoke_on_host_clock(monkeypatch)
+    scene, camera, cfg = entry.cornell_setup(16, 2, device="cpu")
+    rows = cs.cornell_launches(scene, camera, cfg, {"closest": 8,
+                                                    "anyhit": 8})
+    assert [r["case"] for r in rows] == [
+        f"cornell_{m}_d{j}" for j in range(4) for m in ("closest", "anyhit")]
+    assert all(r["launches"] == 2 and r["bitwise"] and r["tests_per_live_ray"]
+               <= 12 for r in rows)
+    assert rows[0]["alive"] == 256 and rows[0]["tests_per_live_ray"] == 12
+    assert rows[-1]["alive"] < 256
+    # the bound: 132 operations a rejected pair, 175 a passing one; o/d of
+    # the live rays, t_max and the outputs of every ray, the mesh once
+    calls = cs.capture_mesh_launches(lambda: tinteg.render_pass(
+        scene, camera, cfg, tinteg.make_filter(cfg),
+        tsen.PixelSensor.create(), 0))
+    mode, (o, d, t), mesh, mask = calls[3]
+    assert mode == "anyhit" and mask is None
+    tests, passed = mik.mesh_anyhit(o, d, t, mesh, stats=True)[1:]
+    live = int((t > 0).sum())
+    flops = (int(tests.sum()) - int(passed.sum())) * 132 \
+        + int(passed.sum()) * 175
+    assert cs.brute_bound(t, tests, passed, 12, None, 1) == cs.bound(
+        flops, 24 * live + 5 * t.numel() + 36 * 12)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_cuda():
     """Needs a CUDA card and nvcc (run by chip_smoke.py on the GPU)."""
@@ -234,3 +399,51 @@ def test_kernel_matches_plain_on_cuda():
     assert mik.LAUNCHES == before + 1
     for x, y in zip(k, p):
         assert torch.equal(x, y)
+
+
+def _card_brute_case(case):
+    """(mesh, o, d, t_max, mask) on the card for one card test case."""
+    rng = np.random.default_rng(11)
+    if case == "mostly_dead":
+        pos, idx, o, d, _, _ = _case("cornell")
+        tm = np.full(o.shape[0], np.inf, np.float32)
+        tm[rng.uniform(size=tm.shape[0]) < 0.95] = rng.choice([0.0, -1.0])
+        mask = None
+    elif case == "ragged_4099":
+        pos, idx, o, d = _soup(4099, 450, 2)
+        tm = np.full(4099, np.inf, np.float32)
+        mask = None
+    else:   # masked_tiles: three tiles of triangles, half of them masked
+        pos, idx, o, d = _soup(2000, 600, 3)
+        tm = np.full(2000, 1.5, np.float32)
+        mask = rng.uniform(size=600) < 0.5
+    cuda = lambda a: torch.tensor(a, device="cuda")
+    return (ttri.MeshData.build(pos, idx, device="cuda"), cuda(o), cuda(d),
+            cuda(tm), None if mask is None else cuda(mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mostly_dead", "ragged_4099",
+                                  "masked_tiles"])
+def test_kernel_modes_and_counters_match_plain_on_cuda(case):
+    """Both kernel modes against their plain versions, bit for bit with
+    both counters: rays mostly dead (t_max 0 or -1), a ray count that is
+    not a multiple of 32 with two tiles of triangles, and three tiles with
+    half the triangles masked."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernel runs only on the card")
+    mesh, o, d, tm, mask = _card_brute_case(case)
+    before = (mik.LAUNCHES, mik.LAUNCHES_ANYHIT)
+    k = mik.mesh_intersect(o, d, tm, mesh, mask, stats=True)
+    k_any = mik.mesh_anyhit(o, d, tm, mesh, mask, stats=True)
+    p = mik.mesh_intersect_plain(o, d, tm, mesh.tri_verts, mask, stats=True)
+    p_any = mik.mesh_anyhit_plain(o, d, tm, mesh.tri_verts, mask, stats=True)
+    torch.cuda.synchronize()
+    assert (mik.LAUNCHES, mik.LAUNCHES_ANYHIT) == (before[0] + 1,
+                                                   before[1] + 1)
+    for x, y in zip(k, p):
+        assert torch.equal(x, y)
+    for x, y in zip(k_any, p_any):
+        assert torch.equal(x, y)
+    assert torch.equal(k_any[0], k[1] >= 0)
+    assert k_any[0].any() and (~k_any[0]).any()
