@@ -21,12 +21,16 @@
 //   published 67 TFLOP/s, which counts an FMA as two operations.
 //
 // What the design does about it, aimed at the Cornell pass (12 triangles,
-//   262,144 rays, many of them dead at depth >= 1):
+//   262,144 rays, 50-100% of them live):
 //   - Live rays only. A block of 256 rays writes the miss of every ray with
 //     t_max <= 0 (or NaN), which cannot hit (the range test needs
 //     0 < ts < t_max |det|), and packs its live rays onto its first
-//     threads in ray order; warps past the live count only help stage the
-//     triangles. No second launch and no global queue.
+//     threads in ray order, so whole warps of dead rays drop out. One
+//     launch: on an H100 80GB HBM3, a global queue of live rays (a second
+//     kernel, as the octree kernel has) was 7-14% faster on the Cornell
+//     pass's sparse any-hit launches and 4-5% slower on its full ones;
+//     each thread keeping its own ray was 7-34% slower where a quarter to
+//     a half of the rays are dead.
 //   - Triangles staged once per block, masked ones dropped while staging
 //     (a ballot and a prefix over the block's warps keep the kept ones in
 //     index order), and stored in the three axis permutations of the
@@ -35,19 +39,23 @@
 //     ray's origin is permuted once instead: the same subtractions). At
 //     F <= 256 one tile holds the mesh and the block syncs twice in all;
 //     larger meshes go in tiles of 256 with two syncs a tile.
-//   - The costly part deferred. The division, t, its error bound and the
-//     barycentrics run only for pairs that pass the edge-sign and range
-//     tests, and a closest-hit lane keeps its latest such pair in
-//     registers and finishes it when the next one comes or after the last
-//     triangle: with incoherent rays nearly every triangle has a lane with
-//     a candidate, and finishing in place would make the warp pay the
-//     costly part at almost every triangle.
+//   - Two passes over each 32 triangles. The first runs the edge-sign
+//     test (132 operations, the bulk) branch-free, two pairs in flight,
+//     into a bit mask; the second takes the set bits in triangle order,
+//     recomputes those pairs' edge functions (the same bits) and runs the
+//     range test, then the division, t, its error bound and the
+//     barycentrics. Branching after every pair's sign test left the loop
+//     without instruction-level parallelism; moving the range test into
+//     the first pass cost more than it saved (few pairs pass the sign
+//     test).
 //   - Ray loads: a warp with at least 8 live rays loads its 32 rays' o and
 //     d as 16-byte coalesced loads into shared memory; sparser warps load
 //     their live rays' 6 floats alone, so a sparse wavefront reads o and d
 //     of the live rays only.
-//   - Any hit: one byte a ray, the ray's lane leaves its loop at the first
-//     hit, and a block whose rays are all done skips its remaining tiles.
+//   - Any hit: one byte a ray, the ray's lane stops after the 32 triangles
+//     holding its first hit, and a block whose rays are all done skips its
+//     remaining tiles.
+//   - At most 64 registers (4 resident blocks of 256 threads).
 //   - Optional per-ray counters (pairs tested, pairs past the edge-sign
 //     test) for the bound; the main path passes null pointers.
 //
@@ -68,24 +76,14 @@ namespace {
 
 using namespace crt;
 
-#ifndef CRT_MESH_THREADS
-#define CRT_MESH_THREADS 256
-#endif
-constexpr int kThreads = CRT_MESH_THREADS;  // rays per block, one a thread
+constexpr int kThreads = 256;            // rays per block, one per thread
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = kThreads;          // triangles per staged tile
 constexpr int kRow = 3;                  // float4 per permuted triangle row
 constexpr int kSlot = 3 * kRow;          // float4 per staged triangle
 constexpr int kDenseWarp = 8;            // live rays that make a warp stage
 constexpr unsigned kFull = 0xffffffffu;
-#ifndef CRT_MESH_UNROLL
-#define CRT_MESH_UNROLL 2
-#endif
-#ifndef CRT_MESH_MIN_BLOCKS
-#define CRT_MESH_MIN_BLOCKS 4
-#endif
-#define CRT_PRAGMA(x) _Pragma(#x)
-#define CRT_UNROLL(n) CRT_PRAGMA(unroll n)
+constexpr int kMinBlocks = 4;            // resident blocks an SM
 
 struct Outputs {
   float* t;
@@ -123,13 +121,12 @@ __device__ __forceinline__ void permuted(int p, float x, float y, float z,
 }
 
 template <bool kAnyHit>
-__global__ void __launch_bounds__(kThreads, CRT_MESH_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 mesh_intersect_kernel(const float* __restrict__ o, const float* __restrict__ d,
                       const float* __restrict__ tmax,
                       const float* __restrict__ tris,
                       const unsigned char* __restrict__ mask, int n, int f,
-                      Outputs out, const int* __restrict__ live_count,
-                      const int* __restrict__ queue) {
+                      Outputs out) {
   // Staged triangles: slot s, permutation p is s_tri[s * kSlot + p * kRow].
   extern __shared__ float4 s_tri[];
   __shared__ int s_id[kTile];               // triangle id of each slot
@@ -143,12 +140,6 @@ mesh_intersect_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const int lane = tid & 31, warp = tid >> 5;
   const unsigned below = (1u << lane) - 1u;
   const int first = blockIdx.x * kThreads;
-#ifdef CRT_MESH_QUEUE
-  const int n_queued = *live_count;
-  if (first >= n_queued) return;  // the whole block: no live ray left
-  const bool live = false;
-  const unsigned live_bits = 0u;
-#else
   const int i = first + tid;
   const bool live = i < n && __ldg(&tmax[i]) > 0.0f;
   if (i < n && !live) {
@@ -170,7 +161,6 @@ mesh_intersect_kernel(const float* __restrict__ o, const float* __restrict__ d,
     reinterpret_cast<float4*>(s_d + 96 * warp)[lane] = __ldg(gd + lane);
   }
   if (lane == 0) s_dense[warp] = dense;
-#endif
 
   int ray = -1;              // the ray this thread holds, -1 when none
   Ray r{};
@@ -236,24 +226,12 @@ mesh_intersect_kernel(const float* __restrict__ o, const float* __restrict__ d,
     }
     __syncthreads();
 
-#if defined(CRT_MESH_QUEUE)
-    if (base == 0 && first + tid < n_queued) {
-      ray = queue[first + tid];
-      const float* ro = o + 3 * ray;
-      const float* rd = d + 3 * ray;
-#else
-#ifdef CRT_MESH_GATE_ONLY
-    if (base == 0 && live) {
-      const int k = tid;
-#else
     if (base == 0 && tid < n_live) {
       const int k = s_live[tid];
-#endif
       ray = first + k;
       const bool staged = s_dense[k >> 5];
       const float* ro = staged ? s_o + 3 * k : o + 3 * ray;
       const float* rd = staged ? s_d + 3 * k : d + 3 * ray;
-#endif
       r = make_ray(ro[0], ro[1], ro[2], rd[0], rd[1], rd[2]);
       const int p = r.kz_x ? 1 : (r.kz_y ? 2 : 0);
       perm(r, r.ox, r.oy, r.oz, opx, opy, opz);
@@ -264,24 +242,17 @@ mesh_intersect_kernel(const float* __restrict__ o, const float* __restrict__ d,
 
     for (int k0 = 0; k0 < cnt && !done; k0 += 32) {
       const int m = min(32, cnt - k0);
-      // Pass 1, branch-free: the edge-sign and range tests of up to 32
-      // triangles, two pairs in flight, as bit masks.
-      unsigned side = 0u, cand = 0u;
-      CRT_UNROLL(CRT_MESH_UNROLL)
+      // Pass 1, branch-free: the edge-sign test of up to 32 triangles, two
+      // pairs in flight, as a bit mask.
+      unsigned side = 0u;
+#pragma unroll 2
       for (int b = 0; b < m; ++b) {
         Pair pr;
-        const bool s1 = edge(k0 + b, pr);
-#ifdef CRT_MESH_NORANGE
-        const bool s2 = true;
-#else
-        const bool s2 = range_stage(r, tm, pr);
-#endif
-        side |= static_cast<unsigned>(s1) << b;
-        cand |= static_cast<unsigned>(s1 && s2) << b;
+        side |= static_cast<unsigned>(edge(k0 + b, pr)) << b;
       }
-      // Pass 2, in triangle order: the candidates again (the same values),
-      // then the costly stage.
-      unsigned rest = cand;
+      // Pass 2, in triangle order: the pairs past the sign test again (the
+      // same values), the range test, then the costly stage.
+      unsigned rest = side;
       int hit_bit = -1;
       while (rest != 0u) {
         const int b = __ffs(rest) - 1;
@@ -316,51 +287,17 @@ mesh_intersect_kernel(const float* __restrict__ o, const float* __restrict__ d,
                      best_b1, best_b2, tests, passed);
 }
 
-// The miss of every ray with t_max <= 0 (or NaN); the others' indices go to
-// queue[0 .. *live), each block's in ray order at a slot taken from *live.
-template <bool kAnyHit>
-__global__ void __launch_bounds__(kThreads)
-mesh_live_rays(const float* __restrict__ tmax, int n, Outputs out,
-               int* __restrict__ live, int* __restrict__ queue) {
-  __shared__ int s_warp[kWarps];
-  __shared__ int s_base;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const unsigned lane = threadIdx.x & 31u, warp = threadIdx.x >> 5;
-  const bool alive = i < n && __ldg(&tmax[i]) > 0.0f;
-  if (i < n && !alive) {
-    write_ray<kAnyHit>(out, i, CUDART_INF_F, -1, 0.0f, 0.0f, 0, 0);
-  }
-  const unsigned m = __ballot_sync(kFull, alive);
-  if (lane == 0) s_warp[warp] = __popc(m);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = s_warp[w];
-      s_warp[w] = total;
-      total += c;
-    }
-    s_base = total > 0 ? atomicAdd(live, total) : 0;
-  }
-  __syncthreads();
-  if (alive) queue[s_base + s_warp[warp] + __popc(m & ((1u << lane) - 1u))] = i;
-}
-
 template <bool kAnyHit>
 int launch(const float* o, const float* d, const float* tmax,
            const float* tris, const unsigned char* mask, int n, int f,
-           const Outputs& out, int* scratch, void* stream) {
+           const Outputs& out, void* stream) {
   if (n <= 0) return 0;
   const int slots = f < kTile ? (f > 0 ? f : 1) : kTile;
   const size_t smem = static_cast<size_t>(slots) * kSlot * sizeof(float4);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (n + kThreads - 1) / kThreads;
-#ifdef CRT_MESH_QUEUE
-  mesh_live_rays<kAnyHit><<<blocks, kThreads, 0, s>>>(tmax, n, out, scratch,
-                                                      scratch + 1);
-#endif
-  mesh_intersect_kernel<kAnyHit><<<blocks, kThreads, smem, s>>>(
-      o, d, tmax, tris, mask, n, f, out, scratch, scratch + 1);
+  mesh_intersect_kernel<kAnyHit>
+      <<<(n + kThreads - 1) / kThreads, kThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(o, d, tmax, tris, mask, n, f,
+                                               out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -378,11 +315,10 @@ extern "C" int crt_mesh_intersect(const float* o, const float* d,
                                   const unsigned char* mask, int n, int f,
                                   float* t_out, int* idx_out, float* b1_out,
                                   float* b2_out, int* tests_out,
-                                  int* passed_out, int* scratch,
-                                  void* stream) {
+                                  int* passed_out, void* stream) {
   const Outputs out{t_out, idx_out, b1_out, b2_out, nullptr, tests_out,
                     passed_out};
-  return launch<false>(o, d, tmax, tris, mask, n, f, out, scratch, stream);
+  return launch<false>(o, d, tmax, tris, mask, n, f, out, stream);
 }
 
 // Any hit: hit_out (n,) bytes, 1 where a triangle is hit in (0, t_max).
@@ -390,10 +326,10 @@ extern "C" int crt_mesh_anyhit(const float* o, const float* d,
                                const float* tmax, const float* tris,
                                const unsigned char* mask, int n, int f,
                                unsigned char* hit_out, int* tests_out,
-                               int* passed_out, int* scratch, void* stream) {
+                               int* passed_out, void* stream) {
   const Outputs out{nullptr, nullptr, nullptr, nullptr, hit_out, tests_out,
                     passed_out};
-  return launch<true>(o, d, tmax, tris, mask, n, f, out, scratch, stream);
+  return launch<true>(o, d, tmax, tris, mask, n, f, out, stream);
 }
 
 extern "C" const char* crt_error_string(int err) {

@@ -244,22 +244,19 @@ def _launch(anyhit, o, d, t_max, tri_verts, tri_mask, stats):
         else (None, None)
     ptr = lambda x: None if x is None else x.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    scratch = torch.empty(n + 1, dtype=torch.int32, device=dev)
-    scratch[:1].zero_()
     if anyhit:
         out = (empty(torch.bool),)
         err = lib.crt_mesh_anyhit(
             o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
             tri_verts.data_ptr(), mask_ptr, n, f, out[0].data_ptr(),
-            *map(ptr, counters), scratch.data_ptr(), stream)
+            *map(ptr, counters), stream)
     else:
         out = (empty(torch.float32), empty(torch.int32),
                empty(torch.float32), empty(torch.float32))
         err = lib.crt_mesh_intersect(
             o.data_ptr(), d.data_ptr(), t_max.data_ptr(),
             tri_verts.data_ptr(), mask_ptr, n, f,
-            *(x.data_ptr() for x in out), *map(ptr, counters),
-            scratch.data_ptr(), stream)
+            *(x.data_ptr() for x in out), *map(ptr, counters), stream)
     if err != 0:
         raise RuntimeError(f"mesh_intersect kernel launch failed: CUDA error "
                            f"{err} ({build.error_string(err)})")

@@ -11,15 +11,13 @@ in one process (a one-off A/B tool).
 The other directory holds a mesh_intersect.cu with the C interface of
 commit 531df1c (crt_mesh_intersect: a float32 mask, no counters, closest
 hit only); it is built with the package's nvcc flags into its own library.
-VARIANTS are this checkout's kernel built with other -D choices: "queue"
-(-DCRT_MESH_QUEUE) queues the live rays in a first kernel, as the octree
-kernel does, instead of each block packing its own live rays onto its
-first threads; "norange" leaves the range test out of the branch-free
-pass (it then runs in the finishing pass only); "t128" uses blocks of 128
-rays and tiles of 128 triangles. The other macros of the kernel source
-give "gate" (-DCRT_MESH_GATE_ONLY: each thread keeps its own ray and
-skips it when dead), "minb4" (-DCRT_MESH_MIN_BLOCKS=4, when the default
-was 3) and "unroll1" (-DCRT_MESH_UNROLL=1). Cases: the phase-2 Cornell
+At commit fbe6aed the kernel source had compile-time variants that
+VARIANTS built beside it: "queue" (a first kernel queues the live rays,
+as the octree kernel does), "norange" (the range test in the finishing
+pass only, the design kept), "t128" (blocks of 128 rays), "gate" (each
+thread keeps its own ray and skips it when dead), "minb4" (at most 64
+registers, when the default allowed 85) and "unroll1" (the sign pass one
+pair at a time). Cases: the phase-2 Cornell
 camera wavefront, the 8 launches of one 512x512 Cornell pass (the other
 kernel runs the any-hit launches as closest hit, as the scene did before
 the any-hit mode), the 4,096-triangle soup with a 50% mask, and the
@@ -56,11 +54,9 @@ from computational_ray_tracer_tpu_torch.ops import triangle as trimod  # noqa: E
 from computational_ray_tracer_tpu_torch.utils import mesh_gen  # noqa: E402
 
 p_, i_ = ctypes.c_void_p, ctypes.c_int
-# Builds of this checkout's kernel with other compile-time choices; "gate"
-# runs only where some rays are dead (elsewhere it is the same kernel).
-VARIANTS = {"queue": ["-DCRT_MESH_QUEUE"],
-            "norange": ["-DCRT_MESH_NORANGE"],
-            "t128": ["-DCRT_MESH_THREADS=128"]}
+# Builds of this checkout's kernel with other compile-time choices: none
+# now (commit fbe6aed had them: see the module docstring).
+VARIANTS = {}
 
 
 def nvcc_start(src_dir, out_dir, defines=()):
@@ -81,8 +77,8 @@ def nvcc_finish(lib, proc, new_abi):
         return None
     so = ctypes.CDLL(lib)
     if new_abi:
-        so.crt_mesh_intersect.argtypes = [p_] * 5 + [i_, i_] + [p_] * 8
-        so.crt_mesh_anyhit.argtypes = [p_] * 5 + [i_, i_] + [p_] * 5
+        so.crt_mesh_intersect.argtypes = [p_] * 5 + [i_, i_] + [p_] * 7
+        so.crt_mesh_anyhit.argtypes = [p_] * 5 + [i_, i_] + [p_] * 4
         so.crt_mesh_anyhit.restype = i_
     else:
         so.crt_mesh_intersect.argtypes = [p_] * 5 + [i_, i_] + [p_] * 5
