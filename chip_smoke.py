@@ -226,35 +226,15 @@ def wrapped(module, name, before=None, after=None):
 
 
 def compare(name, o, d, t_max, mesh, mask):
-    """The wrapper the scene calls (it launches the kernel on card tensors)
-    vs the plain version on the same tensors; raises unless bitwise equal,
-    counters included. The kernel is timed as replays of a CUDA graph of
-    20 launches, its bound taken from its own counters."""
-    kern = lambda: mik.mesh_intersect(o, d, t_max, mesh, mask)[:4]
-    chunk = max(1, (1 << 25) // mesh.n_triangles)
-    plain = lambda: mik.mesh_intersect_plain(o, d, t_max, mesh.tri_verts,
-                                             mask, chunk=chunk, stats=True)
+    """Phase 2: the closest-hit wrapper the scene calls launches the kernel
+    on card tensors, then mesh_launch_row holds it to the plain version,
+    times it and bounds it."""
     launches0 = mik.LAUNCHES
-    k = kern()
-    p = plain()
+    mik.mesh_intersect(o, d, t_max, mesh, mask)
     torch.cuda.synchronize()
     assert mik.LAUNCHES == launches0 + 1, f"{name}: the kernel did not launch"
-    bitwise = all(torch.equal(a, b) for a, b in zip(k, p[:4]))
-    assert bitwise, f"{name}: the kernel differs from its plain version on " \
-        f"{int((k[1] != p[1]).sum())} ids"
-    tests, passed = mik.mesh_intersect(o, d, t_max, mesh, mask,
-                                       stats=True)[5:]
-    assert torch.equal(tests, p[5]) and torch.equal(passed, p[6]), \
-        f"{name}: the kernel's counters differ from the plain count"
-    bound_ms, bound_by = brute_bound(t_max, tests, passed, mesh.n_triangles,
-                                     mask, 16)
-    row = {"case": name, "rays": o.shape[0], "triangles": mesh.n_triangles,
-           "bitwise": bitwise, "hit_frac": torch.isfinite(k[0]).float()
-           .mean().item(), "max_abs_err": 0.0,
-           "passed_per_ray": passed.float().mean().item(),
-           "ms": per_launch_ms(kern), "plain_ms": median_ms(plain, 3),
-           "bound_ms": bound_ms, "bound_by": bound_by}
-    row["share_of_bound"] = bound_ms / row["ms"]
+    row = mesh_launch_row(name, "closest", (o, d, t_max), mesh, mask)
+    row["triangles"] = mesh.n_triangles
     print("phase2", json.dumps(row), flush=True)
     return row
 
@@ -493,32 +473,32 @@ def octree_phase(dev):
     return scene, camera, cfg, row_a, row_c, (v, f, uv)
 
 
-def capture_octree_launches(fn):
-    """Run ``fn()`` and return the inputs (o, d, t_max), cloned, of every
-    octree kernel wrapper call it makes: a list of (mode, (o, d, t_max))."""
+def capture_launches(fn, module, modes):
+    """Run ``fn()`` and return the inputs of every call it makes of the
+    kernel wrappers ``modes`` names (wrapper name -> mode) in ``module``:
+    a list of (mode, (o, d, t_max) flattened and cloned, the wrapper's
+    other positional arguments...)."""
     calls = []
-    keep = lambda mode: lambda o, d, t_max, *_: calls.append(
+    keep = lambda mode: lambda o, d, t_max, *rest: calls.append(
         (mode, (o.reshape(-1, 3).clone(), d.reshape(-1, 3).clone(),
-                t_max.reshape(-1).clone())))
-    with wrapped(okern, "octree_intersect", before=keep("closest")), \
-            wrapped(okern, "octree_anyhit", before=keep("anyhit")):
+                t_max.reshape(-1).clone()), *rest))
+    with contextlib.ExitStack() as stack:
+        for name, mode in modes.items():
+            stack.enter_context(wrapped(module, name, before=keep(mode)))
         fn()
     return calls
+
+
+def capture_octree_launches(fn):
+    """The octree kernel's calls: (mode, rays, packed)."""
+    return capture_launches(fn, okern, {"octree_intersect": "closest",
+                                        "octree_anyhit": "anyhit"})
 
 
 def capture_mesh_launches(fn):
-    """Run ``fn()`` and return the inputs of every brute-force mesh kernel
-    wrapper call it makes: a list of (mode, (o, d, t_max) cloned, mesh,
-    tri_mask)."""
-    calls = []
-    keep = lambda mode: lambda o, d, t_max, mesh, tri_mask=None: \
-        calls.append((mode, (o.reshape(-1, 3).clone(),
-                             d.reshape(-1, 3).clone(),
-                             t_max.reshape(-1).clone()), mesh, tri_mask))
-    with wrapped(mik, "mesh_intersect", before=keep("closest")), \
-            wrapped(mik, "mesh_anyhit", before=keep("anyhit")):
-        fn()
-    return calls
+    """The brute-force kernel's calls: (mode, rays, mesh, tri_mask)."""
+    return capture_launches(fn, mik, {"mesh_intersect": "closest",
+                                      "mesh_anyhit": "anyhit"})
 
 
 def mesh_launch_row(name, mode, rays, mesh, mask):
@@ -641,11 +621,11 @@ def flagship_bounces(f_scene, f_camera, f_cfg, launches):
         f_scene, f_camera, f_cfg, integ.make_filter(f_cfg),
         sen.PixelSensor.create(), 0))
     depth = f_cfg.max_depth
-    modes = [m for m, _ in calls]
+    modes = [m for m, *_ in calls]
     assert modes == ["closest", "anyhit"] * depth, modes
     packed = f_scene.packed_octree
     rows = []
-    for j, (mode, rays) in enumerate(calls):
+    for j, (mode, rays, _) in enumerate(calls):
         row = octree_launch_row(f"flagship_{mode}_d{j // 2}", packed, mode,
                                 rays)
         assert launches[mode] % depth == 0, launches
@@ -835,7 +815,7 @@ def canonical_phase(dragon, dev, card):
     # 12b: the octree kernel on the 500x500 camera wavefront of one pass
     calls = capture_octree_launches(lambda: entry.canonical_pass(
         c_scene, camera, cfg, sen.PixelSensor.create(), 0))
-    assert [m for m, _ in calls] == ["closest"], [m for m, _ in calls]
+    assert [m for m, *_ in calls] == ["closest"], [m for m, *_ in calls]
     row = octree_launch_row("canonical_closest", packed, "closest",
                             calls[0][1])
     row["launches"] = launches["closest"]
