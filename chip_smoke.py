@@ -12,9 +12,9 @@ failed check raises, so the script exits non-zero:
 2. the brute-force mesh kernel (closest hit) vs its plain PyTorch version
    on the card, on (a) the 512x512 Cornell camera wavefront and (b) a
    seeded 4,096-triangle soup x 262,144 rays with a finite t_max and a 50%
-   triangle mask: bitwise agreement, outputs and both per-ray counters;
-   the kernel timed as replays of a CUDA graph of 20 launches, its bound
-   from its own counters;
+   triangle mask: bitwise agreement, outputs and the three per-ray
+   counters; the kernel alone (no wrapper-side fill) timed as replays of a
+   CUDA graph of 20 launches, its bound from its own counters;
 3. the 128x128 golden Cornell render through the port's render(), against
    tests/golden/config2_cornell_path_128.npy at atol 2e-3*max;
 4. the Cornell headline: Cornell box + sphere, 512x512, spp 32, path/MIS
@@ -22,7 +22,7 @@ failed check raises, so the script exits non-zero:
    with the launch counts of both brute-force modes in that run; then (4b)
    the inputs of the 8 brute-force launches of one full-wavefront pass
    (closest and any hit, depths 0-3), each held to the plain version
-   bitwise (closest hit: all four outputs; any hit: every bit; both
+   bitwise (closest hit: all four outputs; any hit: every bit; the three
    counters), timed as in phase 2 and bounded by its own counters;
 5. the octree kernel on the mesh bench scene (entry.mesh327k_setup:
    327,680 triangles, leaf cap 192): set-up times, tree shape and memory;
@@ -189,16 +189,19 @@ def bound(flops, nbytes):
             else "bytes")
 
 
-def brute_bound(t_max, tests, passed, f, mask, out_bytes):
-    """Bound of a brute-force launch from its own per-ray counters: 132
-    operations per pair tested that fails the edge-sign test, 175 per pair
-    that passes it (live rays only; any hit up to its first hit); o and d
-    read for the live rays (t_max > 0), t_max and ``out_bytes`` of outputs
-    for every ray, the triangles (36 bytes each) and the mask once."""
+def brute_bound(t_max, counts, f, mask, out_bytes):
+    """Bound of a brute-force launch from its own per-ray counters
+    ``counts`` = (tests, passed, ranged): mik.EDGE_FLOPS per pair tested
+    that fails the edge-sign test, RANGE_FLOPS per pair past it that fails
+    the range test, PAIR_FLOPS per pair past both (live rays only; any hit
+    up to its first hit); o and d read for the live rays (t_max > 0), t_max
+    and ``out_bytes`` of outputs for every ray, the triangles (36 bytes
+    each) and the mask once."""
     n, live = t_max.numel(), int((t_max > 0).sum())
-    tests, passed = int(tests.sum()), int(passed.sum())
-    return bound((tests - passed) * mik.EDGE_FLOPS + passed * mik.PAIR_FLOPS,
-                 24 * live + (4 + out_bytes) * n + 36 * f
+    tests, passed, ranged = (int(c.sum()) for c in counts)
+    flops = ((tests - passed) * mik.EDGE_FLOPS
+             + (passed - ranged) * mik.RANGE_FLOPS + ranged * mik.PAIR_FLOPS)
+    return bound(flops, 24 * live + (4 + out_bytes) * n + 36 * f
                  + (0 if mask is None else f))
 
 
@@ -358,8 +361,8 @@ def plain_ray_set(packed, o, d, t_max):
 def brute_launch_bound(o, d, t_max, mesh):
     """The bound (ms) of one closest-hit brute-force launch, from the
     kernel's counters."""
-    tests, passed = mik.mesh_intersect(o, d, t_max, mesh, stats=True)[5:]
-    return brute_bound(t_max, tests, passed, mesh.n_triangles, None, 16)[0]
+    counts = mik.mesh_intersect(o, d, t_max, mesh, stats=True)[5:]
+    return brute_bound(t_max, counts, mesh.n_triangles, None, 16)[0]
 
 
 def octree_phase(dev):
@@ -504,15 +507,16 @@ def capture_mesh_launches(fn):
 def mesh_launch_row(name, mode, rays, mesh, mask):
     """The brute-force kernel on one captured launch, through its wrapper:
     held to the plain version bitwise (closest hit: all four outputs; any
-    hit: every bit) and on both counters, timed as replays of a CUDA graph
-    of 20 launches, and bounded by its own counters."""
+    hit: every bit) and on the three counters, bounded by its own counters,
+    and timed alone (mik._launch, without the wrapper's count fill) as
+    replays of a CUDA graph of 20 launches."""
     o, d, t = rays
     anyhit = mode == "anyhit"
     wrapper = mik.mesh_anyhit if anyhit else mik.mesh_intersect
     plain_fn = mik.mesh_anyhit_plain if anyhit else mik.mesh_intersect_plain
-    plain = lambda: plain_fn(o, d, t, mesh.tri_verts, mask, stats=True)
+    plain = lambda: plain_fn(o, d, t, mesh.tri_verts, mask)
     k = wrapper(o, d, t, mesh, mask)
-    p = plain()
+    p = plain_fn(o, d, t, mesh.tri_verts, mask, stats=True)
     torch.cuda.synchronize()
     if anyhit:
         assert torch.equal(k, p[0]), \
@@ -523,19 +527,20 @@ def mesh_launch_row(name, mode, rays, mesh, mask):
             f"{name}: closest hit differs on {int((k[1] != p[1]).sum())} ids"
         row = {"case": name, "hit_frac": torch.isfinite(k[0]).float()
                .mean().item()}
-    tests, passed = wrapper(o, d, t, mesh, mask, stats=True)[-2:]
-    assert torch.equal(tests, p[-2]) and torch.equal(passed, p[-1]), \
+    counts = wrapper(o, d, t, mesh, mask, stats=True)[-3:]
+    assert all(torch.equal(a, b) for a, b in zip(counts, p[-3:])), \
         f"{name}: the kernel's counters differ from the plain count"
-    bound_ms, bound_by = brute_bound(t, tests, passed, mesh.n_triangles, mask,
+    bound_ms, bound_by = brute_bound(t, counts, mesh.n_triangles, mask,
                                      1 if anyhit else 16)
-    ms = per_launch_ms(lambda: wrapper(o, d, t, mesh, mask))
-    live = t > 0
-    row.update(mode=mode, rays=t.numel(), alive=int(live.sum()),
+    ms = per_launch_ms(lambda: mik._launch(anyhit, o, d, t, mesh.tri_verts,
+                                           mask, False))
+    live = int((t > 0).sum())
+    per_live = lambda c: c.sum().item() / max(live, 1)
+    row.update(mode=mode, rays=t.numel(), alive=live,
                bitwise=True, max_abs_err=0.0,
-               tests_per_live_ray=(tests.sum() / live.sum().clamp(min=1))
-               .item(),
-               passed_per_live_ray=(passed.sum() / live.sum().clamp(min=1))
-               .item(),
+               tests_per_live_ray=per_live(counts[0]),
+               passed_per_live_ray=per_live(counts[1]),
+               ranged_per_live_ray=per_live(counts[2]),
                ms=ms, plain_ms=median_ms(plain, 3), bound_ms=bound_ms,
                bound_by=bound_by, share_of_bound=bound_ms / ms)
     return row

@@ -12,9 +12,11 @@
 //   one byte per ray and stops at the ray's first hit.
 //
 // What bounds it on the H100: fp32 arithmetic issued one rounding at a
-//   time. A pair that fails the edge-sign test costs 132 operations
-//   (translate 9, shear 12, three DifferenceOfProducts 111), one that
-//   passes 175 (EDGE_FLOPS and PAIR_FLOPS in ops/mesh_intersect_kernel.py);
+//   time. A pair that fails the edge-sign test costs 108 operations
+//   (translate 9, shear 12, six Dekker splits 24, three DifferenceOfProducts
+//   63), one that fails the range test after it 119, one that reaches the
+//   division 151 (EDGE_FLOPS, RANGE_FLOPS and PAIR_FLOPS in
+//   ops/mesh_intersect_kernel.py);
 //   the triangles (36 bytes each) are shared by every ray of a block, so
 //   device memory sees one read of each live ray and one write of each
 //   result. Without FMA contraction an add or a multiply issues at half the
@@ -40,7 +42,7 @@
 //     F <= 256 one tile holds the mesh and the block syncs twice in all;
 //     larger meshes go in tiles of 256 with two syncs a tile.
 //   - Two passes over each 32 triangles. The first runs the edge-sign
-//     test (132 operations, the bulk) branch-free, two pairs in flight,
+//     test (108 operations, the bulk) branch-free, two pairs in flight,
 //     into a bit mask; the second takes the set bits in triangle order,
 //     recomputes those pairs' edge functions (the same bits) and runs the
 //     range test, then the division, t, its error bound and the
@@ -48,16 +50,15 @@
 //     without instruction-level parallelism; moving the range test into
 //     the first pass cost more than it saved (few pairs pass the sign
 //     test).
-//   - Ray loads: a warp with at least 8 live rays loads its 32 rays' o and
-//     d as 16-byte coalesced loads into shared memory; sparser warps load
-//     their live rays' 6 floats alone, so a sparse wavefront reads o and d
-//     of the live rays only.
+//   - Ray loads: each live ray's thread loads its 6 floats of o and d, so
+//     a sparse wavefront reads o and d of the live rays only.
 //   - Any hit: one byte a ray, the ray's lane stops after the 32 triangles
 //     holding its first hit, and a block whose rays are all done skips its
 //     remaining tiles.
 //   - At most 64 registers (4 resident blocks of 256 threads).
 //   - Optional per-ray counters (pairs tested, pairs past the edge-sign
-//     test) for the bound; the main path passes null pointers.
+//     test, pairs past the range test) for the bound; the main path passes
+//     null pointers.
 //
 // Numerics: the per-pair test is watertight.cuh's, in its three stages, bit
 //   for bit the plain version's (mesh_intersect_kernel.watertight). The
@@ -67,8 +68,6 @@
 //   lowest index among exact ties, as the one-piece loop with a strict '<'
 //   in index order gives. Any hit is the OR of the same per-triangle
 //   predicate, so it equals the closest hit's id >= 0.
-
-#include <stdint.h>
 
 #include "watertight.cuh"
 
@@ -81,7 +80,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = kThreads;          // triangles per staged tile
 constexpr int kRow = 3;                  // float4 per permuted triangle row
 constexpr int kSlot = 3 * kRow;          // float4 per staged triangle
-constexpr int kDenseWarp = 8;            // live rays that make a warp stage
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMinBlocks = 4;            // resident blocks an SM
 
@@ -93,12 +91,13 @@ struct Outputs {
   unsigned char* hit;
   int* tests;
   int* passed;
+  int* ranged;
 };
 
 template <bool kAnyHit>
 __device__ __forceinline__ void write_ray(const Outputs& out, int i, float t,
                                           int idx, float b1, float b2,
-                                          int tests, int passed) {
+                                          int tests, int passed, int ranged) {
   if (kAnyHit) {
     out.hit[i] = idx >= 0 ? 1 : 0;
   } else {
@@ -109,6 +108,7 @@ __device__ __forceinline__ void write_ray(const Outputs& out, int i, float t,
   }
   if (out.tests) out.tests[i] = tests;
   if (out.passed) out.passed[i] = passed;
+  if (out.ranged) out.ranged[i] = ranged;
 }
 
 // v's coordinates in the axis order of permutation p (0: x y z; 1, the
@@ -132,9 +132,6 @@ mesh_intersect_kernel(const float* __restrict__ o, const float* __restrict__ d,
   __shared__ int s_id[kTile];               // triangle id of each slot
   __shared__ int s_count[2][kWarps];        // kept triangles, live rays
   __shared__ int s_live[kThreads];          // the block's live rays
-  __shared__ bool s_dense[kWarps];          // the warp staged its o and d
-  __shared__ __align__(16) float s_o[3 * kThreads];
-  __shared__ __align__(16) float s_d[3 * kThreads];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -143,31 +140,17 @@ mesh_intersect_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const int i = first + tid;
   const bool live = i < n && __ldg(&tmax[i]) > 0.0f;
   if (i < n && !live) {
-    write_ray<kAnyHit>(out, i, CUDART_INF_F, -1, 0.0f, 0.0f, 0, 0);
+    write_ray<kAnyHit>(out, i, CUDART_INF_F, -1, 0.0f, 0.0f, 0, 0, 0);
   }
   const unsigned live_bits = __ballot_sync(kFull, live);
   if (lane == 0) s_count[1][warp] = __popc(live_bits);
-
-  // A dense, fully in-range warp stages its 32 rays' o and d (96 floats
-  // each, 16-byte aligned when the tensors are) with 16-byte loads.
-  const int wfirst = first + warp * 32;
-  const bool dense = __popc(live_bits) >= kDenseWarp && wfirst + 32 <= n &&
-                     ((reinterpret_cast<uintptr_t>(o) |
-                       reinterpret_cast<uintptr_t>(d)) & 15u) == 0;
-  if (dense && lane < 24) {
-    const float4* go = reinterpret_cast<const float4*>(o + 3 * wfirst);
-    const float4* gd = reinterpret_cast<const float4*>(d + 3 * wfirst);
-    reinterpret_cast<float4*>(s_o + 96 * warp)[lane] = __ldg(go + lane);
-    reinterpret_cast<float4*>(s_d + 96 * warp)[lane] = __ldg(gd + lane);
-  }
-  if (lane == 0) s_dense[warp] = dense;
 
   int ray = -1;              // the ray this thread holds, -1 when none
   Ray r{};
   float opx = 0.0f, opy = 0.0f, opz = 0.0f, tm = 0.0f;
   int perm_row = 0;          // float4 offset of the ray's permutation
   float best_t = CUDART_INF_F, best_b1 = 0.0f, best_b2 = 0.0f;
-  int best_i = -1, tests = 0, passed = 0;
+  int best_i = -1, tests = 0, passed = 0, ranged = 0;
   bool done = false;         // any hit: the ray has hit
 
   // Stage 1 of the ray against staged slot k (its permutation's row).
@@ -227,12 +210,11 @@ mesh_intersect_kernel(const float* __restrict__ o, const float* __restrict__ d,
     __syncthreads();
 
     if (base == 0 && tid < n_live) {
-      const int k = s_live[tid];
-      ray = first + k;
-      const bool staged = s_dense[k >> 5];
-      const float* ro = staged ? s_o + 3 * k : o + 3 * ray;
-      const float* rd = staged ? s_d + 3 * k : d + 3 * ray;
-      r = make_ray(ro[0], ro[1], ro[2], rd[0], rd[1], rd[2]);
+      ray = first + s_live[tid];
+      const float* ro = o + 3 * ray;
+      const float* rd = d + 3 * ray;
+      r = make_ray(__ldg(ro), __ldg(ro + 1), __ldg(ro + 2), __ldg(rd),
+                   __ldg(rd + 1), __ldg(rd + 2));
       const int p = r.kz_x ? 1 : (r.kz_y ? 2 : 0);
       perm(r, r.ox, r.oy, r.oz, opx, opy, opz);
       perm_row = p * kRow;
@@ -260,7 +242,9 @@ mesh_intersect_kernel(const float* __restrict__ o, const float* __restrict__ d,
         Pair pr;
         edge(k0 + b, pr);
         float t, b1, b2;
-        if (!range_stage(r, tm, pr) || !hit_stage(pr, t, b1, b2)) continue;
+        if (!range_stage(r, tm, pr)) continue;
+        ++ranged;
+        if (!hit_stage(pr, t, b1, b2)) continue;
         if (kAnyHit) {
           hit_bit = b;
           break;
@@ -284,7 +268,7 @@ mesh_intersect_kernel(const float* __restrict__ o, const float* __restrict__ d,
   }
   if (ray < 0) return;
   write_ray<kAnyHit>(out, ray, best_t, kAnyHit ? (done ? 0 : -1) : best_i,
-                     best_b1, best_b2, tests, passed);
+                     best_b1, best_b2, tests, passed, ranged);
 }
 
 template <bool kAnyHit>
@@ -306,18 +290,19 @@ int launch(const float* o, const float* d, const float* tmax,
 // C interface, bound with ctypes. Pointers are device pointers: o, d (n, 3)
 // float32, tmax (n,), tris (9, f) float32 [p0 xyz, p1 xyz, p2 xyz] rows,
 // mask (f,) bytes, nonzero to keep a triangle, or null (every triangle
-// kept). tests_out and passed_out (n,) int32 may be null: pairs tested and
-// pairs past the edge-sign test, per ray. Each launches one kernel on
-// `stream` and returns cudaGetLastError() of the launch (0 on success).
-// Neither synchronises.
+// kept). tests_out, passed_out and ranged_out (n,) int32 may be null:
+// pairs tested, pairs past the edge-sign test and pairs past the range
+// test as well, per ray. Each launches one kernel on `stream` and returns
+// cudaGetLastError() of the launch (0 on success). Neither synchronises.
 extern "C" int crt_mesh_intersect(const float* o, const float* d,
                                   const float* tmax, const float* tris,
                                   const unsigned char* mask, int n, int f,
                                   float* t_out, int* idx_out, float* b1_out,
                                   float* b2_out, int* tests_out,
-                                  int* passed_out, void* stream) {
-  const Outputs out{t_out, idx_out, b1_out, b2_out, nullptr, tests_out,
-                    passed_out};
+                                  int* passed_out, int* ranged_out,
+                                  void* stream) {
+  const Outputs out{t_out,     idx_out,    b1_out,    b2_out,
+                    nullptr,   tests_out,  passed_out, ranged_out};
   return launch<false>(o, d, tmax, tris, mask, n, f, out, stream);
 }
 
@@ -326,9 +311,10 @@ extern "C" int crt_mesh_anyhit(const float* o, const float* d,
                                const float* tmax, const float* tris,
                                const unsigned char* mask, int n, int f,
                                unsigned char* hit_out, int* tests_out,
-                               int* passed_out, void* stream) {
-  const Outputs out{nullptr, nullptr, nullptr, nullptr, hit_out, tests_out,
-                    passed_out};
+                               int* passed_out, int* ranged_out,
+                               void* stream) {
+  const Outputs out{nullptr, nullptr,   nullptr,    nullptr,
+                    hit_out, tests_out, passed_out, ranged_out};
   return launch<true>(o, d, tmax, tris, mask, n, f, out, stream);
 }
 

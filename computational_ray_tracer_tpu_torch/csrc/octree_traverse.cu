@@ -15,8 +15,8 @@
 //   tests and sibling-group pops.
 //
 // What bounds it on the H100: fp32 arithmetic. A ray/triangle pair costs
-//   175 operations (PAIR_FLOPS in ops/mesh_intersect_kernel.py) and a
-//   ray/box slab test 23. Divergence (lanes of a warp walking different
+//   151 operations (PAIR_FLOPS in ops/mesh_intersect_kernel.py: watertight()
+//   runs all three stages on every pair) and a ray/box slab test 23. Divergence (lanes of a warp walking different
 //   subtrees, leaves of different sizes, lanes whose ray is done) and the
 //   latency of dependent loads cost more than either bound; on sparse
 //   wavefronts (a few thousand live rays of 262,144) the longest ray's

@@ -152,9 +152,9 @@ def load_library():
         lib = ctypes.CDLL(build())
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.crt_mesh_intersect.argtypes = [p, p, p, p, p, i, i, p, p, p, p, p,
-                                           p, p]
+                                           p, p, p]
         lib.crt_mesh_intersect.restype = i
-        lib.crt_mesh_anyhit.argtypes = [p, p, p, p, p, i, i, p, p, p, p]
+        lib.crt_mesh_anyhit.argtypes = [p, p, p, p, p, i, i, p, p, p, p, p]
         lib.crt_mesh_anyhit.restype = i
         lib.crt_octree_traverse.argtypes = [p, p, p, i, p, p, p, i, i, p, p, p,
                                             p, p, p, p, p]

@@ -16,8 +16,9 @@ it with nvcc for ``sm_90a`` at first use.
   are the wrappers the scene calls: for CPU tensors they run the plain
   versions; for CUDA tensors they launch the kernel (or raise).
   ``LAUNCHES`` and ``LAUNCHES_ANYHIT`` count kernel launches.
-- With ``stats=True`` each also returns two per-ray counters, the pairs
-  tested and the pairs past the edge-sign test: only live rays (t_max > 0)
+- With ``stats=True`` each also returns three per-ray counters: the pairs
+  tested, the pairs past the edge-sign test, and the pairs past the range
+  test as well (those that reach the division). Only live rays (t_max > 0)
   test pairs, masked triangles are never tested, and any hit stops at the
   ray's first hit in triangle order.
 
@@ -37,14 +38,16 @@ from computational_ray_tracer_tpu_torch.ops.shapes import (
 LAUNCHES = 0
 LAUNCHES_ANYHIT = 0
 
-# fp32 operations (add, sub, mul, div, min/max; comparisons not counted)
-# per ray/triangle pair of :func:`watertight`, per-ray set-up excluded.
-# A pair that fails the edge-sign test needs translate 9, shear 12 and
-# three DifferenceOfProducts with their Dekker splits 3 x 37; one that
-# passes it also det 2, z scale 3, t_scaled 5, range product 1, 1/det 1,
-# t 1, error bound 28, barycentrics 2.
-EDGE_FLOPS = 132
-PAIR_FLOPS = 175
+# fp32 operations (add, sub, mul, div, min/max; comparisons, negations and
+# abs not counted) per ray/triangle pair of the kernels' watertight test
+# (csrc/watertight.cuh), per-ray set-up excluded. The edge-sign test:
+# translate 9, shear 12, the Dekker splits of the six sheared coordinates
+# 6 x 4 (each shared by two edge functions), three DifferenceOfProducts
+# 3 x 21. The range test: det 2, z scale 3, t_scaled 5, range product 1.
+# The rest: 1/det 1, t 1, error bound 28, barycentrics 2.
+EDGE_FLOPS = 108
+RANGE_FLOPS = 119
+PAIR_FLOPS = 151
 
 # Pairs (rays x triangles) per chunk of the plain version: bounds the
 # (F, rays) intermediates to a few hundred MB.
@@ -86,7 +89,7 @@ def watertight(o, ray, tm, tri):
 
 def _watertight(o, ray, tm, tri):
     """:func:`watertight`, then whether each pair passes the edge-sign
-    test."""
+    test, and whether it passes the range test as well."""
     kz_x, kz_y, inv_dz, sx, sy = ray
 
     def sheared(k):
@@ -130,17 +133,18 @@ def _watertight(o, ray, tm, tri):
     delta_t = 3.0 * (fp_gamma(3) * max_e * max_z + delta_e * max_z
                      + delta_z * max_e) * inv_det.abs()
     hit = same_side & nonzero & in_range & (t > delta_t)
+    ranged = same_side & nonzero & in_range
     return (torch.where(hit, t, torch.full_like(t, math.inf)),
-            e1 * inv_det, e2 * inv_det, same_side)
+            e1 * inv_det, e2 * inv_det, same_side, ranged)
 
 
 def _tri_major(o, d, tm, tris, keep, anyhit, stats):
     """Watertight test of rays (n,) against triangles (F,) as (F, n)
     tensors. Returns (t, idx, b1, b2), each (n,), with inf/-1/0/0 on a miss
     and the lowest index among exact ties, or with ``anyhit`` (hit,);
-    then, with ``stats``, the (tests, passed) counters."""
-    t, e1_det, e2_det, side = _watertight(o.unbind(-1), ray_shear(d), tm,
-                                          [c[:, None] for c in tris])
+    then, with ``stats``, the (tests, passed, ranged) counters."""
+    t, e1_det, e2_det, side, ranged = _watertight(
+        o.unbind(-1), ray_shear(d), tm, [c[:, None] for c in tris])
     if keep is not None:
         t = torch.where(keep[:, None], t, torch.full_like(t, math.inf))
     hits = torch.isfinite(t)
@@ -167,8 +171,9 @@ def _tri_major(o, d, tm, tris, keep, anyhit, stats):
         first = torch.where(hits.any(0), hits.to(torch.int32).argmax(0), f)
         tested = tested & (torch.arange(f, device=t.device)[:, None]
                            <= first[None])
-    return out + (tested.sum(0).to(torch.int32),
-                  (tested & side).sum(0).to(torch.int32))
+    count = lambda pairs: pairs.sum(0).to(torch.int32)
+    return out + (count(tested), count(tested & side),
+                  count(tested & ranged))
 
 
 def _plain(o, d, t_max, tri_verts, tri_mask, chunk, anyhit, stats):
@@ -193,7 +198,8 @@ def mesh_intersect_plain(o, d, t_max, tri_verts, tri_mask=None, chunk=None,
     """Plain PyTorch closest hit of rays o/d (..., 3), t_max (...) against
     triangles ``tri_verts`` (9, F). Returns (t, idx, b1, b2, count) with
     t = inf and idx = -1 on a miss, then, with ``stats``, the per-ray
-    (tests, passed) counters. ``chunk`` rays are tested at a time."""
+    (tests, passed, ranged) counters. ``chunk`` rays are tested at a
+    time."""
     out = _plain(o, d, t_max, tri_verts, tri_mask, chunk, False, stats)
     count = torch.full(o.shape[:-1], tri_verts.shape[1], dtype=torch.int32,
                        device=o.device)
@@ -204,7 +210,7 @@ def mesh_anyhit_plain(o, d, t_max, tri_verts, tri_mask=None, chunk=None,
                       stats=False):
     """Plain PyTorch occlusion: is any triangle hit in (0, t_max)? (...,)
     bool, equal to ``mesh_intersect_plain(...)[1] >= 0``; then, with
-    ``stats``, the per-ray (tests, passed) counters."""
+    ``stats``, the per-ray (tests, passed, ranged) counters."""
     out = _plain(o, d, t_max, tri_verts, tri_mask, chunk, True, stats)
     return out if stats else out[0]
 
@@ -223,8 +229,8 @@ def check_tensor(name, x, shape, dtype, device):
 
 def _launch(anyhit, o, d, t_max, tri_verts, tri_mask, stats):
     """Launch the CUDA kernel on the current stream: (t, idx, b1, b2) or,
-    with ``anyhit``, (hit,); then (tests, passed), None unless ``stats``.
-    Each output is (n,)."""
+    with ``anyhit``, (hit,); then (tests, passed, ranged), None unless
+    ``stats``. Each output is (n,)."""
     global LAUNCHES, LAUNCHES_ANYHIT
     from computational_ray_tracer_tpu_torch.kernels import build
     dev = o.device
@@ -240,8 +246,8 @@ def _launch(anyhit, o, d, t_max, tri_verts, tri_mask, stats):
         mask_ptr = tri_mask.data_ptr()
     lib = build.load_library()
     empty = lambda dtype: torch.empty(n, dtype=dtype, device=dev)
-    counters = (empty(torch.int32), empty(torch.int32)) if stats \
-        else (None, None)
+    counters = tuple(empty(torch.int32) if stats else None
+                     for _ in range(3))
     ptr = lambda x: None if x is None else x.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if anyhit:
@@ -275,7 +281,7 @@ def _device_check(name, o):
 def mesh_intersect(o, d, t_max, mesh, tri_mask=None, stats=False):
     """Closest hit of rays against ``mesh`` (same returns as
     ``triangle.mesh_intersect_brute``: t, tri_idx, b1, b2, count), then,
-    with ``stats``, the per-ray (tests, passed) counters.
+    with ``stats``, the per-ray (tests, passed, ranged) counters.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel; a
     tensor the kernel does not take (dtype, layout, device) raises."""
@@ -295,8 +301,8 @@ def mesh_intersect(o, d, t_max, mesh, tri_mask=None, stats=False):
 def mesh_anyhit(o, d, t_max, mesh, tri_mask=None, stats=False):
     """Occlusion of rays against ``mesh``: is any triangle hit in
     (0, t_max)? (...,) bool, equal to ``mesh_intersect(...)[1] >= 0``;
-    then, with ``stats``, the per-ray (tests, passed) counters. The kernel
-    stops at a ray's first hit and writes one byte a ray.
+    then, with ``stats``, the per-ray (tests, passed, ranged) counters. The
+    kernel stops at a ray's first hit and writes one byte a ray.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel; a
     tensor the kernel does not take (dtype, layout, device) raises."""

@@ -254,14 +254,15 @@ def test_dead_rays_miss_and_test_no_pair(t_dead):
     full = mik.mesh_intersect_plain(*args, torch.tensor(tm), mesh.tri_verts)
     got = mik.mesh_intersect_plain(*args, torch.tensor(tm_dead),
                                    mesh.tri_verts, stats=True)
-    hit, tests, passed = mik.mesh_anyhit_plain(
+    hit, *counts = mik.mesh_anyhit_plain(
         *args, torch.tensor(tm_dead), mesh.tri_verts, stats=True)
     dead_t = torch.tensor(dead)
     assert torch.isinf(got[0][dead_t]).all()
     assert (got[1][dead_t] == -1).all()
     assert (got[2][dead_t] == 0).all() and (got[3][dead_t] == 0).all()
     assert not hit[dead_t].any()
-    for counter in (*got[5:], tests, passed):
+    assert len(got) == 8 and len(counts) == 3
+    for counter in (*got[5:], *counts):
         assert (counter[dead_t] == 0).all()
     for x, y in zip(got[:4], full[:4]):
         assert torch.equal(x[~dead_t], y[~dead_t])
@@ -269,9 +270,11 @@ def test_dead_rays_miss_and_test_no_pair(t_dead):
     assert (got[5][~dead_t] == 12).all() and got[1][~dead_t].ge(0).any()
 
 
-def _np_same_side(o, d, tri_verts):
-    """(F, n) edge-sign test in numpy float32: translate, permute to the
-    dominant axis, shear, the three DifferenceOfProducts (4097 split)."""
+def _np_sign_and_range(o, d, tm, tri_verts):
+    """(F, n) edge-sign test in numpy float32 (translate, permute to the
+    dominant axis, shear, the three DifferenceOfProducts with the 4097
+    split), then the pairs that also pass the range test (a nonzero
+    determinant, 0 < t_scaled < t_max |det| in the determinant's sign)."""
     f32 = np.float32
     ad = np.abs(d)
     kz_x = (ad[:, 0] >= ad[:, 1]) & (ad[:, 0] >= ad[:, 2])
@@ -283,11 +286,12 @@ def _np_same_side(o, d, tri_verts):
     sx, sy = -dp[:, 0] * inv, -dp[:, 1] * inv
     f = tri_verts.shape[1]
     idx = np.broadcast_to(order.T[:, None, :], (3, f, o.shape[0]))
-    xy = []
+    xy, z = [], []
     for k in range(3):
         rel = tri_verts[3 * k:3 * k + 3, :, None] - o.T[:, None, :]
         px, py, pz = np.take_along_axis(rel, idx, 0)
         xy.append((px + sx * pz, py + sy * pz))
+        z.append(inv * pz)
 
     def err(a, b, ab):
         split = lambda v: (v * f32(4097.0)) - (v * f32(4097.0) - v)
@@ -301,41 +305,52 @@ def _np_same_side(o, d, tri_verts):
 
     (ax, ay), (bx, by), (cx, cy) = xy
     e = [dop(bx, cy, by, cx), dop(cx, ay, cy, ax), dop(ax, by, ay, bx)]
-    return (np.all([x >= 0 for x in e], 0)) | (np.all([x <= 0 for x in e], 0))
+    side = np.all([x >= 0 for x in e], 0) | np.all([x <= 0 for x in e], 0)
+    det = (e[0] + e[1]) + e[2]
+    t_scaled = (e[0] * z[0] + e[1] * z[1]) + e[2] * z[2]
+    ts = np.where(det < 0, -t_scaled, t_scaled)
+    in_range = (det != 0) & (ts > 0) & (ts < tm * np.abs(det))
+    return side, side & in_range
 
 
 @pytest.mark.parametrize("anyhit", [False, True])
 def test_plain_counters_match_a_numpy_count(anyhit):
     """The plain version's per-ray counters against a loop that walks each
     live ray's kept triangles in order (any hit stops after its first hit)
-    and counts the pairs tested and those past the edge-sign test."""
+    and counts the pairs tested, those past the edge-sign test and those
+    past the range test as well."""
     pos, idx, o, d, tm, mask = _case("tmax_mask")
     tm = np.where(np.arange(tm.shape[0]) % 5 == 0, np.float32(-1.0), tm)
     mesh = ttri.MeshData.build(pos, idx)
     tv = mesh.tri_verts
     args = (torch.tensor(o), torch.tensor(d), torch.tensor(tm))
     fn = mik.mesh_anyhit_plain if anyhit else mik.mesh_intersect_plain
-    tests, passed = fn(*args, tv, torch.tensor(mask), stats=True)[-2:]
-    side = _np_same_side(o, d, tv.numpy())
+    tests, passed, ranged = fn(*args, tv, torch.tensor(mask),
+                               stats=True)[-3:]
+    side, in_range = _np_sign_and_range(o, d, tm, tv.numpy())
     hit = np.stack([mik.mesh_intersect_plain(*args, tv[:, j:j + 1])[1]
                     .numpy() >= 0 for j in range(tv.shape[1])])
     want_tests = np.zeros(tm.shape[0], np.int32)
     want_passed = np.zeros(tm.shape[0], np.int32)
+    want_ranged = np.zeros(tm.shape[0], np.int32)
     for r in np.nonzero(tm > 0)[0]:
         for j in np.nonzero(mask)[0]:
             want_tests[r] += 1
             want_passed[r] += side[j, r]
+            want_ranged[r] += in_range[j, r]
             if anyhit and hit[j, r]:
                 break
     np.testing.assert_array_equal(tests.numpy(), want_tests)
     np.testing.assert_array_equal(passed.numpy(), want_passed)
-    assert 0 < want_passed.sum() < want_tests.sum()
+    np.testing.assert_array_equal(ranged.numpy(), want_ranged)
+    assert 0 < want_ranged.sum() < want_passed.sum() < want_tests.sum()
     if anyhit:
         assert (want_tests < 50).any() and (want_tests[tm > 0] <= 50).all()
 
 
 def _smoke_on_host_clock(monkeypatch):
-    """chip_smoke, with the host clock in place of CUDA events."""
+    """chip_smoke, with the host clock in place of CUDA events and the
+    plain version in place of the brute-force kernel's bare launch."""
     import time
     import chip_smoke as cs
 
@@ -343,6 +358,11 @@ def _smoke_on_host_clock(monkeypatch):
         t0 = time.perf_counter()
         out = fn()
         return out, (time.perf_counter() - t0) * 1e3
+
+    def plain_launch(anyhit, o, d, t_max, tri_verts, tri_mask, stats):
+        fn = mik.mesh_anyhit_plain if anyhit else mik.mesh_intersect_plain
+        return fn(o, d, t_max, tri_verts, tri_mask, stats=stats)
+    monkeypatch.setattr(mik, "_launch", plain_launch)
 
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(cs, "timed", host_timed)
@@ -368,18 +388,20 @@ def test_smoke_holds_each_mesh_launch_of_a_cornell_pass(monkeypatch):
                <= 12 for r in rows)
     assert rows[0]["alive"] == 256 and rows[0]["tests_per_live_ray"] == 12
     assert rows[-1]["alive"] < 256
-    # the bound: 132 operations a rejected pair, 175 a passing one; o/d of
-    # the live rays, t_max and the outputs of every ray, the mesh once
+    # the bound: 108 operations a pair rejected by the sign test, 119 one
+    # rejected by the range test, 151 one past both; o/d of the live rays,
+    # t_max and the outputs of every ray, the mesh once
     calls = cs.capture_mesh_launches(lambda: tinteg.render_pass(
         scene, camera, cfg, tinteg.make_filter(cfg),
         tsen.PixelSensor.create(), 0))
     mode, (o, d, t), mesh, mask = calls[3]
     assert mode == "anyhit" and mask is None
-    tests, passed = mik.mesh_anyhit(o, d, t, mesh, stats=True)[1:]
+    counts = mik.mesh_anyhit(o, d, t, mesh, stats=True)[1:]
+    tests, passed, ranged = (int(c.sum()) for c in counts)
+    assert 0 < ranged < passed < tests
     live = int((t > 0).sum())
-    flops = (int(tests.sum()) - int(passed.sum())) * 132 \
-        + int(passed.sum()) * 175
-    assert cs.brute_bound(t, tests, passed, 12, None, 1) == cs.bound(
+    flops = (tests - passed) * 108 + (passed - ranged) * 119 + ranged * 151
+    assert cs.brute_bound(t, counts, 12, None, 1) == cs.bound(
         flops, 24 * live + 5 * t.numel() + 36 * 12)
 
 
@@ -427,9 +449,9 @@ def _card_brute_case(case):
                                   "masked_tiles"])
 def test_kernel_modes_and_counters_match_plain_on_cuda(case):
     """Both kernel modes against their plain versions, bit for bit with
-    both counters: rays mostly dead (t_max 0 or -1), a ray count that is
-    not a multiple of 32 with two tiles of triangles, and three tiles with
-    half the triangles masked."""
+    the three counters: rays mostly dead (t_max 0 or -1), a ray count that
+    is not a multiple of 32 with two tiles of triangles, and three tiles
+    with half the triangles masked."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
     mesh, o, d, tm, mask = _card_brute_case(case)
