@@ -322,14 +322,17 @@ def counters(tests, pops):
 
 
 def octree_bound(packed, t_max, tests, pops, out_words):
-    """Bound of one traversal launch from its own counters: the counted
-    pair and slab-test fp32 operations; t_max read and ``out_words`` 4-byte
+    """Bound of one traversal launch from its own counters: the slab
+    tests' fp32 operations and mik.EDGE_FLOPS per triangle test, what every
+    test needs (the counters do not separate the few tests past the
+    edge-sign test, which need up to PAIR_FLOPS); t_max read and
+    ``out_words`` 4-byte
     outputs written for every ray, o and d read for the live rays (t_max >
     0) only, and the three tree tables once, or, where it is less (a sparse
     wavefront), one sibling-group row per counted pop and one triangle slot
     per counted test."""
     n, live = t_max.numel(), int((t_max > 0).sum())
-    flops = (int(tests.sum()) * mik.PAIR_FLOPS
+    flops = (int(tests.sum()) * mik.EDGE_FLOPS
              + int(pops.sum()) * 8 * okern.SLAB_FLOPS)
     touched = 4 * (int(pops.sum()) * 8 * okern.NODE_LANES
                    + int(tests.sum()) * okern.TRI_LANES)
@@ -360,9 +363,15 @@ def plain_ray_set(packed, o, d, t_max):
 
 def brute_launch_bound(o, d, t_max, mesh):
     """The bound (ms) of one closest-hit brute-force launch, from the
-    kernel's counters."""
+    kernel's counters, and its pairs past the sign test and past the range
+    test per ray (a yardstick for the octree kernel's tests past the sign
+    test on the same rays, which its counters do not separate)."""
     counts = mik.mesh_intersect(o, d, t_max, mesh, stats=True)[5:]
-    return brute_bound(t_max, counts, mesh.n_triangles, None, 16)[0]
+    n = t_max.numel()
+    return {"brute_bound_ms": brute_bound(t_max, counts, mesh.n_triangles,
+                                          None, 16)[0],
+            "brute_passed_per_ray": counts[1].sum().item() / n,
+            "brute_ranged_per_ray": counts[2].sum().item() / n}
 
 
 def octree_phase(dev):
@@ -415,7 +424,7 @@ def octree_phase(dev):
     row_b = hits_agree("b_closest_vs_brute_kernel", k, brute())
     row_b.update(ms=median_ms(kern), brute_kernel_ms=median_ms(brute, 3),
                  pairs=n * scene.mesh.n_triangles,
-                 brute_bound_ms=brute_launch_bound(o, d, t_inf, scene.mesh))
+                 **brute_launch_bound(o, d, t_inf, scene.mesh))
     print("phase5b", json.dumps(row_b), flush=True)
 
     # (c) any hit vs plain on the sorted shadow wavefront of a direct pass
@@ -468,7 +477,7 @@ def octree_phase(dev):
                  leaf_table_mb=dpacked.leaf_verts.numel() * 4 / 1e6,
                  ms=median_ms(kern_d), brute_kernel_ms=median_ms(dbrute, 3),
                  bound_ms=bound_d, bound_by=bound_d_by,
-                 brute_bound_ms=brute_launch_bound(do, dd, t_inf, dmesh),
+                 **brute_launch_bound(do, dd, t_inf, dmesh),
                  max_memory_allocated_mb=torch.cuda.max_memory_allocated()
                  / 1e6, **counters(tests, pops))
     print("phase5d", json.dumps(row_d), flush=True)

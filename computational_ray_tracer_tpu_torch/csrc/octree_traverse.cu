@@ -14,9 +14,10 @@
 //   any triangle is hit in (0, t_max); plus per-ray counters of triangle
 //   tests and sibling-group pops.
 //
-// What bounds it on the H100: fp32 arithmetic. A ray/triangle pair costs
-//   151 operations (PAIR_FLOPS in ops/mesh_intersect_kernel.py: watertight()
-//   runs all three stages on every pair) and a ray/box slab test 23. Divergence (lanes of a warp walking different
+// What bounds it on the H100: fp32 arithmetic. A ray/triangle test needs
+//   108 operations for its edge-sign test and up to 151 in all (EDGE_FLOPS
+//   and PAIR_FLOPS in ops/mesh_intersect_kernel.py), a ray/box slab test
+//   23. Divergence (lanes of a warp walking different
 //   subtrees, leaves of different sizes, lanes whose ray is done) and the
 //   latency of dependent loads cost more than either bound; on sparse
 //   wavefronts (a few thousand live rays of 262,144) the longest ray's

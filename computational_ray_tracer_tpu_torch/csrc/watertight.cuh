@@ -102,6 +102,11 @@ __device__ __forceinline__ float dop(float a, Split sa, float b, Split sb,
                               two_prod_err(sc, sd, cd)));
 }
 
+// a*b - c*d with exact-product correction, each factor split here.
+__device__ __forceinline__ float dop(float a, float b, float c, float d) {
+  return dop(a, split(a), b, split(b), c, split(c), d, split(d));
+}
+
 // Stage 1 from the vertices already permuted and translated to the ray's
 // origin: (axp, ayp, azp) = perm(p0 - o), and so on. True when the three
 // edge functions share a sign.
@@ -167,7 +172,9 @@ __device__ __forceinline__ bool hit_stage(const Pair& p, float& t, float& b1,
 
 // Does the ray hit triangle v = (p0 xyz, p1 xyz, p2 xyz) in (0, tm)? On a
 // hit, t is the distance and (b1, b2) = (e1, e2) / det the barycentrics.
-// All three stages, every one computed.
+// The one-piece test of the octree kernel (the same operations as the
+// three stages, every one computed): on an H100 the octree kernel ran 1-6%
+// slower built from the stages than from this form.
 __device__ __forceinline__ bool watertight(const Ray& r, float tm,
                                            const float v[9], float& t,
                                            float& b1, float& b2) {
@@ -175,12 +182,46 @@ __device__ __forceinline__ bool watertight(const Ray& r, float tm,
   perm(r, sub(v[0], r.ox), sub(v[1], r.oy), sub(v[2], r.oz), axp, ayp, azp);
   perm(r, sub(v[3], r.ox), sub(v[4], r.oy), sub(v[5], r.oz), bxp, byp, bzp);
   perm(r, sub(v[6], r.ox), sub(v[7], r.oy), sub(v[8], r.oz), cxp, cyp, czp);
-  Pair p;
-  const bool same_side =
-      edge_stage(r, axp, ayp, azp, bxp, byp, bzp, cxp, cyp, czp, p);
-  const bool in_range = range_stage(r, tm, p);
-  const bool clears = hit_stage(p, t, b1, b2);
-  return same_side && in_range && clears;
+  const float ax = add(axp, mul(r.sx, azp)), ay = add(ayp, mul(r.sy, azp));
+  const float bx = add(bxp, mul(r.sx, bzp)), by = add(byp, mul(r.sy, bzp));
+  const float cx = add(cxp, mul(r.sx, czp)), cy = add(cyp, mul(r.sy, czp));
+
+  const float e0 = dop(bx, cy, by, cx);
+  const float e1 = dop(cx, ay, cy, ax);
+  const float e2 = dop(ax, by, ay, bx);
+  const bool same_side = (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f) ||
+                         (e0 <= 0.0f && e1 <= 0.0f && e2 <= 0.0f);
+  const float det = add(add(e0, e1), e2);
+  const bool nonzero = det != 0.0f;
+
+  const float az = mul(r.inv_dz, azp), bz = mul(r.inv_dz, bzp),
+              cz = mul(r.inv_dz, czp);
+  const float t_scaled = add(add(mul(e0, az), mul(e1, bz)), mul(e2, cz));
+  const float ts = det < 0.0f ? -t_scaled : t_scaled;
+  const bool in_range = (ts > 0.0f) && (ts < mul(tm, fabsf(det)));
+
+  const float inv_det = __fdiv_rn(1.0f, nonzero ? det : 1.0f);
+  t = mul(t_scaled, inv_det);
+
+  // conservative error bound on t
+  const float max_z = fmax3(fabsf(az), fabsf(bz), fabsf(cz));
+  const float delta_z = mul(kG3, max_z);
+  const float max_x = fmax3(fabsf(ax), fabsf(bx), fabsf(cx));
+  const float max_y = fmax3(fabsf(ay), fabsf(by), fabsf(cy));
+  const float delta_x = mul(kG5, add(max_x, max_z));
+  const float delta_y = mul(kG5, add(max_y, max_z));
+  const float delta_e =
+      mul(2.0f, add(add(mul(mul(kG2, max_x), max_y), mul(delta_y, max_x)),
+                    mul(delta_x, max_y)));
+  const float max_e = fmax3(fabsf(e0), fabsf(e1), fabsf(e2));
+  const float delta_t =
+      mul(mul(3.0f, add(add(mul(mul(kG3, max_e), max_z), mul(delta_e, max_z)),
+                        mul(delta_z, max_e))),
+          fabsf(inv_det));
+
+  b1 = mul(e1, inv_det);
+  b2 = mul(e2, inv_det);
+  return same_side && nonzero && in_range && (t > delta_t);
 }
 
 }  // namespace crt

@@ -358,10 +358,12 @@ def test_smoke_holds_each_octree_launch_of_a_flagship_pass(monkeypatch):
 
 
 def test_smoke_octree_bound_counts_what_a_launch_touches():
-    """chip_smoke's octree bound: t_max and the outputs count for every
-    ray, o and d for the live rays only; the tree tables count whole where
-    the counted pops and tests would read more, else one group row per
-    pop and one triangle slot per test (a sparse bounce wavefront)."""
+    """chip_smoke's octree bound: each counted triangle test the
+    edge-sign test's operations, each pop its slab tests; t_max and the
+    outputs count for every ray, o and d for the live rays only; the tree
+    tables count whole where the counted pops and tests would read more,
+    else one group row per pop and one triangle slot per test (a sparse
+    bounce wavefront)."""
     import chip_smoke as cs
     from computational_ray_tracer_tpu_torch.ops import (
         mesh_intersect_kernel as mik)
@@ -379,7 +381,7 @@ def test_smoke_octree_bound_counts_what_a_launch_touches():
         touched = (4 * 8 * okern.NODE_LANES * int(pops.sum())
                    + 4 * okern.TRI_LANES * int(tests.sum()))
         assert (touched > packed.nbytes()) == whole
-        flops = (int(tests.sum()) * mik.PAIR_FLOPS
+        flops = (int(tests.sum()) * mik.EDGE_FLOPS
                  + int(pops.sum()) * 8 * okern.SLAB_FLOPS)
         nbytes = (4 * n * (1 + out_words) + 24 * int((t > 0).sum())
                   + min(touched, packed.nbytes()))

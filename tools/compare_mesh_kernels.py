@@ -1,30 +1,41 @@
-"""The brute-force mesh kernel and the octree kernel of this checkout, each
-against another build of its source, in turns on the card, in one process
-(a one-off A/B tool).
+"""The brute-force mesh kernel and the octree kernel of this checkout
+against other builds of their sources, in turns on the card, in one
+process (a one-off A/B tool).
 
-    mkdir -p .cache/ab/mesh .cache/ab/octree
-    git show <commit>:computational_ray_tracer_tpu_torch/csrc/watertight.cuh \
+    mkdir -p .cache/ab/pr4 .cache/ab/staged .cache/ab/octree
+    # PR 4's brute-force kernel (the C interface of commit 531df1c)
+    for f in mesh_intersect.cu watertight.cuh; do git show \
+        531df1c:computational_ray_tracer_tpu_torch/csrc/$f \
+        > .cache/ab/pr4/$f; done
+    # the octree kernel of this checkout with PR 4's watertight.cuh
+    git show 531df1c:computational_ray_tracer_tpu_torch/csrc/watertight.cuh \
         > .cache/ab/octree/watertight.cuh
     cp computational_ray_tracer_tpu_torch/csrc/octree_traverse.cu \
         .cache/ab/octree/
-    (and a mesh_intersect.cu with its watertight.cuh in .cache/ab/mesh)
-    python3 tools/compare_mesh_kernels.py --mesh-other .cache/ab/mesh \
-        --octree-other .cache/ab/octree --out chiprun_out/ab
+    # .cache/ab/staged: another mesh_intersect.cu and watertight.cuh with
+    # this checkout's C interface
+    python3 tools/compare_mesh_kernels.py --pr4 .cache/ab/pr4 \
+        --staged .cache/ab/staged --octree-other .cache/ab/octree \
+        --out chiprun_out/ab
 
-Each other directory is built with the package's nvcc flags into a
-library of its own; its C interface must be this checkout's
-(crt_mesh_intersect / crt_mesh_anyhit with three counters, or
-crt_octree_traverse). While an other library runs, the port's wrappers
-launch its kernels in place of the package's.
+Each directory is built with the package's nvcc flags into a library of
+its own. --staged and --octree-other have this checkout's C interface
+(crt_mesh_intersect / crt_mesh_anyhit with three counters;
+crt_octree_traverse): while one of them runs, the port's wrappers launch
+its kernels in place of the package's. --pr4 has commit 531df1c's
+(crt_mesh_intersect only, a float32 mask, no counters); it runs the
+any-hit launches as closest hit, as the scene did before the any-hit mode.
 
-Cases: the brute-force kernel on the 8 launches of one 512x512 Cornell
-pass (closest and any hit, depths 0-3) and on the 4,096-triangle soup
-with a 50% mask, the kernel alone (mik._launch); the octree kernel on the
-8 launches of one full-wavefront flagship pass and on the canonical
-frame's 500x500 camera launch, through its wrappers. Turns: new, other,
-other, new, each a median of 5 replays of a CUDA graph of 20 launches
-(chip_smoke.per_launch_ms). Every output is held equal to the new
-kernel's, bit for bit. One JSON line per case, on stdout and in --out.
+Cases: the brute-force kernel (alone: mik._launch) on the 8 launches of
+one 512x512 Cornell pass (closest and any hit, depths 0-3), on the
+4,096-triangle soup with a 50% mask, and on the camera wavefronts of the
+327,680- and 872,320-triangle meshes; the octree kernel (through its
+wrappers) on the 8 launches of one full-wavefront flagship pass and on
+the canonical frame's 500x500 camera launch. Turns: every build forward,
+then backward; each turn the median of 5 replays of a CUDA graph of 20
+launches (chip_smoke.per_launch_ms), or one CUDA-event launch on the two
+large meshes. Every output is held equal to the new kernel's, bit for
+bit. One JSON line per case, on stdout and in --out.
 """
 
 import argparse
@@ -45,10 +56,12 @@ import chip_smoke as cs  # noqa: E402
 from computational_ray_tracer_tpu_torch import entry  # noqa: E402
 from computational_ray_tracer_tpu_torch.kernels import build  # noqa: E402
 from computational_ray_tracer_tpu_torch.models import integrator as integ  # noqa: E402,E501
+from computational_ray_tracer_tpu_torch.ops import camera as cam  # noqa: E402
 from computational_ray_tracer_tpu_torch.ops import (  # noqa: E402
     mesh_intersect_kernel as mik)
 from computational_ray_tracer_tpu_torch.ops import octree_kernel as okern  # noqa: E402,E501
 from computational_ray_tracer_tpu_torch.ops import sensor as sen  # noqa: E402
+from computational_ray_tracer_tpu_torch.ops import triangle as trimod  # noqa: E402,E501
 from computational_ray_tracer_tpu_torch.utils import mesh_gen  # noqa: E402
 
 P, I = ctypes.c_void_p, ctypes.c_int
@@ -57,9 +70,10 @@ SIGNATURES = {  # as kernels/build.load_library binds them
     "crt_mesh_anyhit": [P] * 5 + [I, I] + [P] * 5,
     "crt_octree_traverse": [P, P, P, I, P, P, P, I, I] + [P] * 8,
 }
+PR4_SIGNATURE = [P] * 5 + [I, I] + [P] * 5
 
 
-def build_other(src_dir, out_dir):
+def build_other(src_dir, out_dir, signatures):
     """Compile every .cu of ``src_dir`` into ``out_dir``/lib.so and bind
     the entry points it has; prints what ptxas said."""
     os.makedirs(out_dir, exist_ok=True)
@@ -73,7 +87,7 @@ def build_other(src_dir, out_dir):
     if out.returncode != 0:
         raise RuntimeError(log)
     so = ctypes.CDLL(lib)
-    for name, args in SIGNATURES.items():
+    for name, args in signatures.items():
         if hasattr(so, name):
             getattr(so, name).argtypes = args
             getattr(so, name).restype = I
@@ -91,25 +105,26 @@ def library(so):
         build._LIB = saved
 
 
-def in_turns(name, fn, other_so, check, emit, **extra):
-    """``fn`` with the package's library and with ``other_so``, in turns
-    new, other, other, new; ``check(new_out, other_out)`` must hold."""
-    def other():
-        with library(other_so):
+def swapped(so, fn):
+    def run():
+        with library(so):
             return fn()
-    new_out, other_out = fn(), other()
-    torch.cuda.synchronize()
-    assert check(new_out, other_out), f"{name}: outputs differ"
-    times = {"new": [], "other": []}
-    for key in ("new", "other", "other", "new"):
-        times[key].append(cs.per_launch_ms(fn if key == "new" else other))
-    row = {"case": name, **extra, "same_outputs": True}
-    for key, v in times.items():
-        row[f"{key}_ms"] = sum(v) / len(v)
-        row[f"{key}_turns_ms"] = v
-    row["new_over_other"] = row["new_ms"] / row["other_ms"]
-    emit(row)
-    return row
+    return run
+
+
+def pr4_closest(so, o, d, t, mesh, mask_f32):
+    """Commit 531df1c's kernel through its C interface: (t, idx, b1, b2)."""
+    n, f = o.shape[0], mesh.n_triangles
+    out = [torch.empty(n, dtype=dt, device=o.device) for dt in
+           (torch.float32, torch.int32, torch.float32, torch.float32)]
+    err = so.crt_mesh_intersect(
+        o.data_ptr(), d.data_ptr(), t.data_ptr(), mesh.tri_verts.data_ptr(),
+        None if mask_f32 is None else mask_f32.data_ptr(), n, f,
+        *(x.data_ptr() for x in out),
+        torch.cuda.current_stream(o.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"PR 4 kernel: CUDA error {err}")
+    return out
 
 
 def equal(a, b):
@@ -120,14 +135,62 @@ def equal(a, b):
                for x, y in zip(a, b))
 
 
+def in_turns(name, runs, graph, emit, **extra):
+    """Time every fn of ``runs`` (key -> fn, "new" first) in turns, all
+    forward then all backward."""
+    time_ms = cs.per_launch_ms if graph else (lambda fn: cs.median_ms(fn, 1))
+    times = {key: [] for key in runs}
+    for key in list(runs) + list(runs)[::-1]:
+        times[key].append(time_ms(runs[key]))
+    row = {"case": name, **extra, "same_outputs": True}
+    for key, v in times.items():
+        row[f"{key}_ms"] = sum(v) / len(v)
+        row[f"{key}_turns_ms"] = v
+    for key in runs:
+        if key != "new":
+            row[f"new_over_{key}"] = row["new_ms"] / row[f"{key}_ms"]
+    emit(row)
+    return row
+
+
+def mesh_case(name, mode, o, d, t, mesh, mask, libs, graph, emit):
+    """The brute-force kernel, this checkout's against --staged and --pr4
+    on one launch; outputs held equal first."""
+    anyhit = mode == "anyhit"
+    new = lambda: mik._launch(anyhit, o, d, t, mesh.tri_verts, mask, False)
+    runs = {"new": new}
+    k = new()
+    if libs.get("staged") is not None:
+        runs["staged"] = swapped(libs["staged"], new)
+        assert equal(runs["staged"](), k), f"{name}: staged differs"
+    mask_f32 = None if mask is None else mask.to(torch.float32)
+    runs["pr4"] = lambda: pr4_closest(libs["pr4"], o, d, t, mesh, mask_f32)
+    ref = runs["pr4"]()
+    torch.cuda.synchronize()
+    assert (torch.equal(k[0], ref[1] >= 0) if anyhit
+            else equal(k[:4], ref)), f"{name}: PR 4's kernel differs"
+    return in_turns(name, runs, graph, emit, kernel="mesh", mode=mode,
+                    rays=t.numel(), alive=int((t > 0).sum()),
+                    triangles=mesh.n_triangles)
+
+
 def summed(name, rows, emit):
+    keys = [k[:-3] for k in rows[0] if k.endswith("_ms")
+            and not k.endswith("turns_ms")]
     emit({"case": name, **{f"{key}_ms": sum(r[f"{key}_ms"] for r in rows)
-                           for key in ("new", "other")}})
+                           for key in keys}})
+
+
+def camera_rays(camera, cfg, dev):
+    _, _, _, o, d = integ.camera_wavefront(camera, cfg,
+                                           integ.make_filter(cfg), 0, dev)
+    return o.contiguous(), d.contiguous()
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mesh-other", required=True)
+    ap.add_argument("--pr4", required=True)
+    ap.add_argument("--staged")
     ap.add_argument("--octree-other", required=True)
     ap.add_argument("--out", default="chiprun_out/ab")
     args = ap.parse_args()
@@ -145,11 +208,17 @@ def main():
     emit({"card": cs.card_line()})
     build.load_library()
     emit({"new_ptxas": cs.ptxas_report(build.build_log)})
-    libs_dir = os.path.join(os.path.dirname(os.path.abspath(args.mesh_other)),
+    libs_dir = os.path.join(os.path.dirname(os.path.abspath(args.pr4)),
                             "libs")
-    mesh_so = build_other(args.mesh_other, os.path.join(libs_dir, "mesh"))
-    octree_so = build_other(args.octree_other,
-                            os.path.join(libs_dir, "octree"))
+    libs = {"pr4": build_other(args.pr4, os.path.join(libs_dir, "pr4"),
+                               {"crt_mesh_intersect": PR4_SIGNATURE}),
+            "octree": build_other(args.octree_other,
+                                  os.path.join(libs_dir, "octree"),
+                                  SIGNATURES)}
+    if args.staged:
+        libs["staged"] = build_other(args.staged,
+                                     os.path.join(libs_dir, "staged"),
+                                     SIGNATURES)
     dev = torch.device("cuda", 0)
 
     # the brute-force kernel: the Cornell pass's 8 launches, the soup
@@ -158,27 +227,33 @@ def main():
     calls = cs.capture_mesh_launches(lambda: integ.render_pass(
         scene, camera, cfg, integ.make_filter(cfg), sen.PixelSensor.create(),
         0))
+    rows = [mesh_case(f"cornell_{mode}_d{j // 2}", mode, *rays, mesh, mask,
+                      libs, True, emit)
+            for j, (mode, rays, mesh, mask) in enumerate(calls)]
+    summed("cornell_pass_8_launches", rows, emit)
     soup_mesh, so_, sd_ = cs.soup(4096, 262144, 0, dev)
-    calls.append(("closest", (so_, sd_, torch.full((262144,), 1.5,
-                                                   device=dev)), soup_mesh,
-                  torch.arange(4096, device=dev) % 2 == 0))
-    rows = []
-    for j, (mode, (o, d, t), mesh, mask) in enumerate(calls):
-        name = (f"cornell_{mode}_d{j // 2}" if j < 8
-                else "soup_4096_tmax_mask")
-        launch = (lambda o=o, d=d, t=t, mesh=mesh, mask=mask, mode=mode:
-                  mik._launch(mode == "anyhit", o, d, t, mesh.tri_verts,
-                              mask, False))
-        rows.append(in_turns(name, launch, mesh_so, equal, emit,
-                             kernel="mesh", mode=mode, rays=t.numel(),
-                             alive=int((t > 0).sum()),
-                             triangles=mesh.n_triangles))
-    summed("cornell_pass_8_launches", rows[:8], emit)
+    mesh_case("soup_4096_tmax_mask", "closest", so_, sd_,
+              torch.full((262144,), 1.5, device=dev), soup_mesh,
+              torch.arange(4096, device=dev) % 2 == 0, libs, True, emit)
     del scene, calls, soup_mesh, so_, sd_
 
-    # the octree kernel: the flagship pass's 8 launches, the canonical one
-    m_scene, _, _ = entry.mesh327k_setup(cs.HEADLINE_RES, cs.MESH_SPP,
-                                         device=dev)
+    # the large meshes' camera wavefronts, then the octree kernel on the
+    # flagship pass's 8 launches and the canonical camera launch
+    m_scene, m_camera, m_cfg = entry.mesh327k_setup(
+        cs.HEADLINE_RES, cs.MESH_SPP, device=dev)
+    t_inf = torch.full((cs.HEADLINE_RES ** 2,), float("inf"), device=dev)
+    mesh_case("mesh327k_camera", "closest",
+              *camera_rays(m_camera, m_cfg, dev), t_inf, m_scene.mesh, None,
+              libs, False, emit)
+    dragon = mesh_gen.dragon_stand_in()
+    dmesh = trimod.MeshData.build(dragon[0], dragon[1], uvs=dragon[2],
+                                  device=dev)
+    dcam = cam.PerspectiveCamera.create((0, 12, -52), (cs.HEADLINE_RES,) * 2,
+                                        fov_y=45.0, look_at=(0, -1, 0))
+    mesh_case("dragon872k_camera", "closest", *camera_rays(dcam, m_cfg, dev),
+              t_inf, dmesh, None, libs, False, emit)
+    del dmesh
+
     f_scene, f_camera, f_cfg = entry.flagship_setup(
         cs.HEADLINE_RES, cs.MESH_SPP, scene=m_scene, device=dev)
     calls = [(f"flagship_{mode}_d{j // 2}", mode, rays, packed)
@@ -187,8 +262,7 @@ def main():
                      f_scene, f_camera, f_cfg, integ.make_filter(f_cfg),
                      sen.PixelSensor.create(), 0)))]
     del m_scene, f_scene
-    c_scene = entry.canonical_scene(40, mesh=mesh_gen.dragon_stand_in(),
-                                    device=dev)
+    c_scene = entry.canonical_scene(40, mesh=dragon, device=dev)
     c_camera, c_cfg = entry.canonical_view(cs.CANONICAL_RES,
                                            cs.CANONICAL_SPP)
     calls += [("canonical_closest", mode, rays, packed)
@@ -200,10 +274,12 @@ def main():
         o, d, t = (x.contiguous() for x in rays)
         wrapper = (okern.octree_anyhit if mode == "anyhit"
                    else okern.octree_intersect)
-        rows.append(in_turns(
-            name, lambda o=o, d=d, t=t, w=wrapper, p=packed: w(o, d, t, p),
-            octree_so, equal, emit, kernel="octree", mode=mode,
-            rays=t.numel(), alive=int((t > 0).sum())))
+        new = lambda o=o, d=d, t=t, w=wrapper, p=packed: w(o, d, t, p)
+        runs = {"new": new, "pr4_header": swapped(libs["octree"], new)}
+        assert equal(new(), runs["pr4_header"]()), f"{name}: outputs differ"
+        rows.append(in_turns(name, runs, True, emit, kernel="octree",
+                             mode=mode, rays=t.numel(),
+                             alive=int((t > 0).sum())))
     summed("flagship_pass_8_launches", rows[:8], emit)
     log.close()
 
