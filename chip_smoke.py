@@ -99,7 +99,31 @@ failed check raises, so the script exits non-zero:
    walk integrators, uniform hero wavelengths, the firefly clamp and a
    named sensor on the card against the same pass on the CPU, at atol
    2e-3*max, with the kernels' launches;
-13. (printed after 15) a JSON line of the kernels, with a row for each
+16. the sharded paths at full width (parallel/sharding.py): (a) the
+   Cornell headline (512x512, spp 32, path/MIS depth 4, brute kernel)
+   through render_distributed at world size 1 over NCCL, held to phase 4's
+   film (rtol 1e-5 / atol 2e-6; bitwise equality reported), s/pass; (b)
+   the same with two ranks on the one card over gloo with CUDA tensors
+   (NCCL takes one rank a device), layouts (dp, sp) = (2, 1) and (1, 2),
+   each rank's kernel launches counted and its scene's bits hashed;
+   (c) config 5's sharded train step (48x48, depth 3, every leaf of
+   inverse.albedo_and_emission_params) at world size 1 (1, 1) and 2
+   ((2, 1), (1, 2)): the gradient averaged over the ranks against the
+   unsharded port's over the same samples on the card (rtol 1e-3, atol
+   1e-6 of max|g| per leaf), then 5 Adam steps on fixed samples (the
+   loss must fall) and s/step, with every rank's launches (the interp
+   backward included);
+17. the new render options on the card: (a) the Cornell headline at 512x512
+   with the sobol_global sampler (m = 9) through render(), s/pass, and
+   its sample values for dims 0-12 (and the 2D filter and lens draws) of
+   samples 0 and 31 over all 262,144 pixels equal to the CPU's bit for
+   bit; (b) one 128x128 Cornell pass with sobol_global and one with the
+   Lanczos filter against the same pass on the CPU at atol 2e-3*max, on
+   every pixel but those whose camera ray meets a triangle edge within
+   1e-5 (barycentric; counted); (c) entry.shapes_setup's sphere, cylinder
+   and disk under the orthographic, pinhole and thin-lens cameras at
+   128x128, each pass against the CPU's at atol 2e-3*max;
+13. (printed after 17) a JSON line of the kernels, with a row for each
    brute-force mode, each launch of 4b, each launch of 10b and 12b, the
    interpolation kernel and each case of its backward (9b)
    (CUDA-event medians: of 5 for
@@ -119,6 +143,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -136,7 +161,9 @@ from computational_ray_tracer_tpu_torch.ops import mesh_intersect_kernel as mik
 from computational_ray_tracer_tpu_torch.ops import octree as octmod
 from computational_ray_tracer_tpu_torch.ops import octree_kernel as okern
 from computational_ray_tracer_tpu_torch.ops import sensor as sen
+from computational_ray_tracer_tpu_torch.ops import film as filmmod
 from computational_ray_tracer_tpu_torch.ops import triangle as trimod
+from computational_ray_tracer_tpu_torch.parallel import sharding as par
 from computational_ray_tracer_tpu_torch.utils import mesh_gen
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -182,6 +209,25 @@ RENDER_OPTIONS = {
     "clamp": {"clamp": 0.05},
     "named_sensor": {"sensor_name": "canon_eos_5d"},
 }
+# 16: the sharded film against phase 4's (the CPU tests' tolerance), the
+# sharded gradient against the unsharded one (rtol, and atol as a share of
+# the leaf's max|g|), the train steps.
+FILM_RTOL, FILM_ATOL = 1e-5, 2e-6
+SHARD_GRAD_RTOL, SHARD_GRAD_ATOL_SHARE = 1e-3, 1e-6
+SHARD_STEPS = 5
+TWO_RANK_LAYOUTS = ((2, 1), (1, 2))
+RANKS_TIMEOUT_S = 300       # 16b's deadline (their time: PERF.md section 5)
+# 17: the sobol_global sample values checked bit for bit, and the new
+# options and cameras of the 128x128 card-vs-CPU passes.
+GLOBAL_DIMS = range(13)
+GLOBAL_SAMPLES = (0, 31)
+NEW_OPTIONS = {
+    "sobol_global": {"sampler": integ.SamplerConfig(kind="sobol_global",
+                                                    spp=1)},
+    "lanczos": {"filter_name": "lanczos"},
+}
+NEW_CAMERAS = ("orthographic", "pinhole", "thinlens")
+EDGE_BARY = 1e-5
 
 
 def card_line():
@@ -1002,7 +1048,8 @@ def grads_close(got, ref, rel):
 
 def config5_phase(dev, card, scale="full", steps=TRAIN_STEPS):
     """Phases 14a and 14b (config 5 at ``scale``); returns (14b's launches,
-    the first interpolation backward call of 14a's gradient)."""
+    the first interpolation backward call of 14a's gradient, 14b's median
+    seconds per step)."""
     target, start, camera, cfg, lr, _ = entry.config5_setup(scale, dev)
     render_image, _ = inv.make_render_fn(camera, cfg)
     with torch.no_grad():
@@ -1066,7 +1113,7 @@ def config5_phase(dev, card, scale="full", steps=TRAIN_STEPS):
         "loss_rtol": LOSS_RTOL,
         "launches_per_step": {k: v / steps for k, v in launches.items()},
         "card": card}), flush=True)
-    return launches, calls[0] if calls else None
+    return launches, calls[0] if calls else None, statistics.median(steps_s)
 
 
 def headline_grad_phase(dev, card, res=HEADLINE_RES):
@@ -1198,6 +1245,311 @@ def options_phase(dev, res=OPTION_RES):
             "launches": launches}), flush=True)
 
 
+def close_films(got, ref):
+    """(max |diff| of the weighted sums, bitwise) of two films; raises
+    beyond FILM_RTOL / FILM_ATOL."""
+    for a, b in ((got.rgb_sum, ref.rgb_sum), (got.weight_sum,
+                                              ref.weight_sum)):
+        a = a.cpu()
+        b = b.cpu()
+        excess = ((a - b).abs() - FILM_RTOL * b.abs()).max().item()
+        assert excess <= FILM_ATOL, f"films differ by {excess} past rtol"
+    assert got.spp_done == ref.spp_done, (got.spp_done, ref.spp_done)
+    return ((got.rgb_sum.cpu() - ref.rgb_sum.cpu()).abs().max().item(),
+            torch.equal(got.rgb_sum.cpu(), ref.rgb_sum.cpu())
+            and torch.equal(got.weight_sum.cpu(), ref.weight_sum.cpu()))
+
+
+def sharded_headline(scene, camera, cfg, mesh, dev):
+    """One warm-up step, then render_distributed with every count at 0
+    just before and read just after: (film, s/pass, launches)."""
+    step, _ = par.make_sharded_render(scene, camera, cfg, mesh)
+    step(scene, filmmod.Film.create(cfg.resolution, device=dev), 0)
+    sync(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    film, _ = par.render_distributed(scene, camera, cfg, mesh)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    path = ("brute_closest", "brute_anyhit", "interp")
+    assert torch.device(dev).type != "cuda" or min(
+        launches[k] for k in path) > 0, launches
+    return film, dt / cfg.sampler.spp, launches
+
+
+def config5_target(dev, scale):
+    """Config 5's target image on ``dev`` (cfg.sampler.spp passes)."""
+    target, _, camera, cfg, _, _ = entry.config5_setup(scale, dev)
+    render_image, _ = inv.make_render_fn(camera, cfg)
+    with torch.no_grad():
+        return render_image(target)
+
+
+def config5_sharded(dev, scale, mesh, target_img, steps=SHARD_STEPS):
+    """Config 5's sharded train step on ``mesh`` with every leaf of
+    albedo_and_emission_params: the averaged gradient at sample 0 (SGD at
+    lr 0 leaves it in .grad), then ``steps`` + 1 Adam steps at config 5's
+    lr on the same samples (the last step's loss is the loss after
+    ``steps`` updates), with every count at 0 just before and read just
+    after; s/step is the median of the steps after the first."""
+    _, start, camera, cfg, lr, _ = entry.config5_setup(scale, dev)
+    ei = inv.albedo_and_emission_params(start)
+    step, init, _ = par.make_train_step(
+        start, camera, cfg, mesh, ei,
+        optimizer=lambda leaves: torch.optim.SGD(leaves, lr=0.0))
+    params = inv.leaf_params(ei[0](start))
+    step(params, init(params), start, target_img, 0)
+    grads = {k: p.grad.cpu() for k, p in params.items()}
+    step, init, _ = par.make_train_step(
+        start, camera, cfg, mesh, ei,
+        optimizer=lambda leaves: torch.optim.Adam(leaves, lr=lr))
+    params = inv.leaf_params(ei[0](start))
+    opt = init(params)
+    losses, times = [], []
+    sync(dev)
+    zero_counts()
+    for _ in range(steps + 1):
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, start, target_img, 0)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    launches = read_counts()
+    assert losses[-1] < losses[0], f"sharded loss {losses[0]} -> {losses[-1]}"
+    cuda = torch.device(dev).type == "cuda"
+    assert not cuda or min(launches[k] for k in (
+        "brute_closest", "brute_anyhit", "interp", "interp_backward")) > 0, \
+        launches
+    return {"grads": grads, "losses": losses,
+            "s_per_step_median": statistics.median(times[1:]),
+            "launches": launches}
+
+
+def unsharded_grads(dev, scale, target_img, n_sp):
+    """The unsharded port's gradient of the config 5 loss over samples
+    0..n_sp-1 (the samples a sharded step at sample 0 renders)."""
+    _, start, camera, cfg, _, _ = entry.config5_setup(scale, dev)
+    extract, insert = inv.albedo_and_emission_params(start)
+    render_image, _ = inv.make_render_fn(camera, cfg, spp=n_sp)
+    params = inv.leaf_params(extract(start))
+    loss = torch.mean((render_image(insert(start, params)) - target_img)
+                      ** 2)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return {k: g.cpu() for k, g in zip(params, grads)}
+
+
+def sharded_grads_close(got, ref):
+    """Max |diff| / max|ref| per leaf; raises past SHARD_GRAD_RTOL with an
+    atol of SHARD_GRAD_ATOL_SHARE of the leaf's max|ref|."""
+    out = {}
+    for key, r in ref.items():
+        g = got[key]
+        scale = float(r.abs().max())
+        assert bool(torch.isfinite(g).all()), key
+        torch.testing.assert_close(g, r, rtol=SHARD_GRAD_RTOL,
+                                   atol=SHARD_GRAD_ATOL_SHARE * scale)
+        out[key] = float((g - r).abs().max()) / max(scale, 1e-30)
+    return out
+
+
+def spawn_ranks(fn, args, nprocs, timeout_s=RANKS_TIMEOUT_S):
+    """Run fn(rank, *args) in ``nprocs`` spawned processes; raises if one
+    fails, and kills them all and raises if they take over
+    ``timeout_s``."""
+    ctx = torch.multiprocessing.start_processes(
+        fn, args=args, nprocs=nprocs, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError(f"{nprocs} ranks ran past {timeout_s} s")
+
+
+def sharded_rank(rank, world, tmp, dev_type, res, spp, scale):
+    """A rank of phase 16b/16c: joins the gloo group of ``world`` ranks
+    over a file store in ``tmp``, renders the Cornell headline at each of
+    TWO_RANK_LAYOUTS and runs config 5's sharded steps, and writes its
+    results to tmp/rank<rank>.pt."""
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else "cpu"
+    if dev_type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build.load_library()
+    par.init_distributed("file://" + os.path.join(tmp, "store"), world,
+                         rank, device_type=dev_type, backend="gloo")
+    scene, camera, cfg = entry.cornell_setup(res, spp, dev)
+    target_img = torch.load(os.path.join(tmp, "target.pt")).to(dev)
+    out = {"digest": par.scene_digest(scene)}
+    for layout in TWO_RANK_LAYOUTS:
+        mesh = par.make_mesh(*layout, device_type=dev_type)
+        film, s_pass, launches = sharded_headline(scene, camera, cfg, mesh,
+                                                  dev)
+        out[layout] = {"s_per_pass": s_pass, "launches": launches,
+                       "film": filmmod.Film(film.rgb_sum.cpu(),
+                                            film.weight_sum.cpu(),
+                                            film.spp_done),
+                       "train": config5_sharded(dev, scale, mesh,
+                                                target_img)}
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def sharded_phase(dev, card, ref_film, ref_s_pass, train_s_step,
+                  res=HEADLINE_RES, spp=HEADLINE_SPP, scale="full"):
+    """Phase 16 (see the module docstring); ``ref_film`` is phase 4's."""
+    dev_type = torch.device(dev).type
+    scene, camera, cfg = entry.cornell_setup(res, spp, dev)
+    mesh = par.make_mesh(1, 1, device_type=dev_type)
+    backend = torch.distributed.get_backend()
+    film, s_pass, launches = sharded_headline(scene, camera, cfg, mesh, dev)
+    diff, bitwise = close_films(film, ref_film)
+    print("phase16a", json.dumps({
+        "world": 1, "backend": backend, "res": res, "spp": spp,
+        "depth": cfg.max_depth, "s_per_pass": s_pass,
+        "render_s_per_pass_phase4": ref_s_pass,
+        "max_abs_diff_vs_render": diff, "bitwise": bitwise,
+        "rtol": FILM_RTOL, "atol": FILM_ATOL, "launches": launches,
+        "card": card}), flush=True)
+    del scene, film
+
+    target_img = config5_target(dev, scale)
+    refs = {n_sp: unsharded_grads(dev, scale, target_img, n_sp)
+            for n_sp in (1, 2)}
+    rows = [((1, 1), [config5_sharded(dev, scale, mesh, target_img)])]
+    torch.distributed.destroy_process_group()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(target_img.cpu(), os.path.join(tmp, "target.pt"))
+        spawn_ranks(sharded_rank, (2, tmp, dev_type, res, spp, scale), 2)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    assert ranks[0]["digest"] == ranks[1]["digest"], "ranks' scenes differ"
+    for layout in TWO_RANK_LAYOUTS:
+        diffs = [close_films(r[layout]["film"], ref_film) for r in ranks]
+        print("phase16b", json.dumps({
+            "world": 2, "backend": "gloo", "layout": layout, "res": res,
+            "spp": spp, "s_per_pass": [r[layout]["s_per_pass"]
+                                       for r in ranks],
+            "max_abs_diff_vs_render": max(d[0] for d in diffs),
+            "bitwise": all(d[1] for d in diffs),
+            "launches": [r[layout]["launches"] for r in ranks],
+            "scene_digests_equal": True, "card": card}), flush=True)
+        rows.append((layout, [r[layout]["train"] for r in ranks]))
+    for layout, trains in rows:
+        n_sp = layout[1]
+        share = [sharded_grads_close(t["grads"], refs[n_sp]) for t in trains]
+        print("phase16c", json.dumps({
+            "world": layout[0] * layout[1], "layout": layout,
+            "grad_diff_share_of_max": share,
+            "rtol": SHARD_GRAD_RTOL, "atol_share": SHARD_GRAD_ATOL_SHARE,
+            "losses": [t["losses"] for t in trains],
+            "s_per_step_median": [t["s_per_step_median"] for t in trains],
+            "passes_per_step_per_rank": 1,
+            "phase14b_s_per_step_8_passes": train_s_step,
+            "launches": [t["launches"] for t in trains],
+            "card": card}), flush=True)
+
+
+def edge_pixels(scene, camera, cfg, sample_idx):
+    """(H, W) mask of the pixels whose camera ray hits the mesh within
+    EDGE_BARY (barycentric) of a triangle edge, where which triangle is hit
+    turns on the last bit of t (sobol_global's diagonal pixels meet the
+    Cornell box's edges)."""
+    _, _, _, o, d = integ.camera_wavefront(
+        camera, cfg, integ.make_filter(cfg), sample_idx, scene.device)
+    _, kind, _, b1, b2 = scene_mod.scene_intersect_t(
+        scene, o, d, torch.full_like(o[:, 0], float("inf")))
+    b = torch.stack([1.0 - b1 - b2, b1, b2], -1).amin(-1)
+    w, h = cfg.resolution
+    return ((kind == scene_mod.TYPE_MESH) & (b < EDGE_BARY)).reshape(h, w)
+
+
+def pass_vs_cpu(phase, case, setup, cpu_setup, dev, mask_edges=False):
+    """One render_pass of ``setup`` on ``dev`` against the same pass of
+    ``cpu_setup`` on the CPU at atol 2e-3*max (with ``mask_edges``, on
+    the pixels edge_pixels leaves); prints the row."""
+    (scene, camera, cfg), (c_scene, c_camera, c_cfg) = setup, cpu_setup
+    zero_counts()
+    rgb = integ.render_pass(scene, camera, cfg, integ.make_filter(cfg),
+                            integ.make_sensor(cfg), 0)[0]
+    sync(dev)
+    launches = read_counts()
+    ref = integ.render_pass(c_scene, c_camera, c_cfg, integ.make_filter(
+        c_cfg), integ.make_sensor(c_cfg), 0)[0]
+    rgb = rgb.cpu()
+    keep = torch.ones(ref.shape[:2], dtype=torch.bool)
+    if mask_edges:
+        keep = ~edge_pixels(c_scene, c_camera, c_cfg, 0)
+    atol = 2e-3 * max(float(ref.max()), 1e-3)
+    diff = (rgb - ref).abs().amax(-1)
+    err = float(diff[keep].max())
+    assert bool(torch.isfinite(rgb).all()) and err <= atol, \
+        f"{phase} {case}: max |diff| {err} > atol {atol}"
+    assert torch.device(dev).type != "cuda" or launches["interp"] > 0, \
+        launches
+    print(phase, json.dumps({
+        "case": case, "res": cfg.resolution[0], "max_abs_diff_vs_cpu": err,
+        "atol": atol, "image_max": float(ref.max()),
+        "edge_pixels_left_out": int((~keep).sum()),
+        "max_abs_diff_on_edge_pixels": float(diff[~keep].max())
+        if (~keep).any() else None, "launches": launches}), flush=True)
+
+
+def options_card_phase(dev, card, res=HEADLINE_RES, spp=HEADLINE_SPP,
+                       small=OPTION_RES):
+    """Phase 17 (see the module docstring)."""
+    scene, camera, cfg = entry.cornell_setup(res, spp, dev)
+    cfg = dataclasses.replace(cfg, sampler=integ.SamplerConfig(
+        kind="sobol_global", spp=spp))
+    integ.render(scene, camera, cfg, passes=1)
+    sync(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    film, sensor = integ.render(scene, camera, cfg, chunk=spp)
+    sync(dev)
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    assert torch.device(dev).type != "cuda" or min(
+        launches["brute_closest"], launches["brute_anyhit"],
+        launches["interp"]) > 0, launches
+    img = film.resolve(sensor).cpu().numpy()
+    mean, _, _ = image_checks(img)
+    s = cfg.sampler
+    pixel = torch.arange(res * res, device=dev)
+    draws = 0
+    for sample in GLOBAL_SAMPLES:
+        for dim in GLOBAL_DIMS:
+            got = s.get_1d(pixel, sample, dim).cpu()
+            assert torch.equal(got, s.get_1d(pixel.cpu(), sample, dim)), \
+                f"sobol_global sample {sample} dim {dim} differs"
+            draws += 1
+        for dim in (integ.DIM_FILTER, integ.DIM_LENS):
+            got = s.get_2d(pixel, sample, dim).cpu()
+            assert torch.equal(got, s.get_2d(pixel.cpu(), sample, dim)), \
+                f"sobol_global 2D sample {sample} dim {dim} differs"
+            draws += 1
+    print("phase17a", json.dumps({
+        "res": res, "spp": spp, "m": s.m, "s_per_pass": dt / spp,
+        "launches": launches, "image_mean": mean,
+        "draws_bitwise_vs_cpu": draws, "dims": list(GLOBAL_DIMS),
+        "samples": list(GLOBAL_SAMPLES), "pixels": res * res,
+        "card": card}), flush=True)
+    del scene, film
+
+    setup = entry.cornell_setup(small, 1, dev)
+    cpu_setup = entry.cornell_setup(small, 1, "cpu")
+    for name, change in NEW_OPTIONS.items():
+        with_option = lambda su: su[:2] + (dataclasses.replace(su[2],
+                                                               **change),)
+        pass_vs_cpu("phase17b", name, with_option(setup),
+                    with_option(cpu_setup), dev, mask_edges=True)
+    for kind in ("sphere", "cylinder", "disk"):
+        for camera_kind in NEW_CAMERAS:
+            pass_vs_cpu("phase17c", f"{kind}_{camera_kind}",
+                        entry.shapes_setup(kind, camera_kind, small, dev),
+                        entry.shapes_setup(kind, camera_kind, small, "cpu"),
+                        dev)
+
+
 def main():
     t_start = time.perf_counter()
     # phase 0
@@ -1263,6 +1615,9 @@ def main():
         "image_mean": mean, "left_wall": left,
         "right_wall": right, "card": card}), flush=True)
     cornell_rows = cornell_launches(scene, camera, cfg, launches)
+    headline_film = filmmod.Film(film.rgb_sum.cpu(), film.weight_sum.cpu(),
+                                 film.spp_done)
+    headline_s_pass = dt / HEADLINE_SPP
     del scene, film, mesh_s, o_s, d_s
 
     # phase 5
@@ -1378,7 +1733,7 @@ def main():
     del dragon
 
     # phase 14: training at full width
-    train_launches, c5_call = config5_phase(dev, card)
+    train_launches, c5_call, train_s_step = config5_phase(dev, card)
     backward_rows.append(interp_backward_case("d_config5_cache", *c5_call))
     backward_rows[-1]["launches"] = train_launches["interp_backward"]
     headline_call = headline_grad_phase(dev, card)
@@ -1389,6 +1744,10 @@ def main():
 
     # phase 15: golden configuration 1 and the other integrator options
     options_phase(dev)
+
+    # phase 16: the sharded paths; phase 17: the new options
+    sharded_phase(dev, card, headline_film, headline_s_pass, train_s_step)
+    options_card_phase(dev, card)
 
     # phase 13
     print("smoke", json.dumps({"seconds": time.perf_counter() - t_start}),

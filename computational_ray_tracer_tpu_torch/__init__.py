@@ -6,7 +6,10 @@ numpy only, never jax: the reference's data files are read by path, and the
 small host helpers it needs are ported (``ops/spectra_data.py``,
 ``ops/rng.py``'s Sobol generator, ``utils/mesh_gen.py``).
 
-Port status (first slice): the Cornell path/MIS render through ``render()``
-with the brute-force mesh intersection running on the hand-written CUDA
-kernel ``csrc/mesh_intersect.cu`` on a GPU.
+What is ported: ``render()`` with every integrator, sampler, filter,
+camera and shape kind of the reference, the brute-force and octree mesh
+paths and the spectral interpolation on hand-written CUDA kernels
+(``csrc/``), inverse rendering (``models/inverse.py``) and sharded
+rendering and training over ``torch.distributed`` (``parallel/``).
+ROADMAP.md lists what is left.
 """

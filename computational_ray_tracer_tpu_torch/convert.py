@@ -7,7 +7,9 @@ from a JAX ``Scene``; nothing here imports jax):
 - ``materials.<leaf>`` for the 7 MaterialTable leaves and ``lights.<leaf>``
   for the 7 LightTable leaves;
 - optionally ``spheres.{radius,z_min,z_max,phi_max,o2w,w2o}`` and
-  ``sphere_mat``;
+  ``sphere_mat``, ``cylinders.{radius,z_min,z_max,phi_max,o2w,w2o}`` and
+  ``cylinder_mat``, ``disks.{height,radius,inner_radius,phi_max,o2w,w2o}``
+  and ``disk_mat``;
 - optionally ``mesh.{positions,normals,uvs,tangents,bitangents,indices}``
   and ``mesh_tri_mat``, and ``tri_mask``;
 - optionally the six arrays of the reference's ``Octree`` as
@@ -38,6 +40,13 @@ from computational_ray_tracer_tpu_torch.ops import shapes as shp
 from computational_ray_tracer_tpu_torch.ops import triangle as trimod
 
 SPHERE_FIELDS = ("radius", "z_min", "z_max", "phi_max", "o2w", "w2o")
+CYLINDER_FIELDS = SPHERE_FIELDS
+DISK_FIELDS = ("height", "radius", "inner_radius", "phi_max", "o2w", "w2o")
+# (prefix, table class, its fields, material-id key) of each shape kind
+SHAPE_TABLES = (("spheres", shp.SphereTable, SPHERE_FIELDS, "sphere_mat"),
+                ("cylinders", shp.CylinderTable, CYLINDER_FIELDS,
+                 "cylinder_mat"),
+                ("disks", shp.DiskTable, DISK_FIELDS, "disk_mat"))
 MESH_FIELDS = ("positions", "normals", "uvs", "tangents", "bitangents",
                "indices")
 OCTREE_FIELDS = tuple(f.name for f in dataclasses.fields(octmod.Octree))
@@ -54,11 +63,12 @@ def scene_from_numpy(arrays: dict, device="cuda") -> Scene:
     materials = mat.MaterialTable.from_arrays(_sub(arrays, "materials"),
                                               device)
     lights = lgt.LightTable.from_arrays(_sub(arrays, "lights"), device)
-    spheres = sphere_mat = None
-    if "spheres.radius" in arrays:
-        sp = _sub(arrays, "spheres")
-        spheres = shp.SphereTable(*[f32(sp[k]) for k in SPHERE_FIELDS])
-        sphere_mat = i64(arrays["sphere_mat"])
+    shapes = {}
+    for prefix, cls, fields, mat_key in SHAPE_TABLES:
+        if prefix + ".radius" in arrays:
+            sub = _sub(arrays, prefix)
+            shapes[prefix] = cls(*[f32(sub[k]) for k in fields])
+            shapes[mat_key] = i64(arrays[mat_key])
     mesh = tri_mat = tri_mask = tree = packed = tex = None
     if "mesh.positions" in arrays:
         mesh = trimod.MeshData.from_arrays(
@@ -74,9 +84,10 @@ def scene_from_numpy(arrays: dict, device="cuda") -> Scene:
     if arrays.get("texture") is not None:
         tex = f32(arrays["texture"])
     has_rough = bool((materials.kind == mat.ROUGH_CONDUCTOR).any())
-    return Scene(spheres, mesh, materials, lights, sphere_mat, tri_mat, tex,
-                 tri_mask, tree, packed, wr=float(arrays["wr"]),
-                 has_rough=has_rough)
+    return Scene(shapes.pop("spheres", None), mesh, materials, lights,
+                 shapes.pop("sphere_mat", None), tri_mat, tex, tri_mask, tree,
+                 packed, wr=float(arrays["wr"]), has_rough=has_rough,
+                 **shapes)
 
 
 def params_from_numpy(tree: dict, device="cuda", requires_grad=True) -> dict:

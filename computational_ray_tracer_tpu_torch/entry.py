@@ -22,7 +22,10 @@ by default):
 - ``canonical_setup``, ``canonical_pass`` and ``canonical_render``: the
   canonical frame of ``benchmarks/canonical.py`` (the 872,320-triangle
   dragon stand-in x5 at cap 40 with backface culling, a thin lens, the
-  triangle filter and a direct Li that casts no shadow rays).
+  triangle filter and a direct Li that casts no shadow rays);
+- ``shapes_setup``: the clipped sphere, the cylinder and the annular disk
+  of ``apps/shape_test.py`` under an ambient light, seen by any of the four
+  camera kinds, direct lighting.
 """
 
 from __future__ import annotations
@@ -354,3 +357,53 @@ def canonical_render(res=500, spp=100, cap=40, scene=None, device="cuda"):
         rgb, wt = canonical_pass(scene, camera, cfg, sensor, i)
         film = film.add_aligned(rgb, wt)
     return film.resolve(sensor), film
+
+
+SHAPE_MATERIALS = [{"kind": "diffuse", "albedo_rgb": (0.7, 0.7, 0.7)}]
+SHAPE_LIGHTS = [{"kind": "ambient", "spd_named": "stdillum-E", "scale": 1.0}]
+SHAPE_EYE = (0.0, 0.6, -3.2)
+# Each camera kind's class name and parameters, from SHAPE_EYE looking at
+# the origin; the lens cameras' sensors are sized to frame the shapes.
+SHAPE_CAMERAS = {
+    "perspective": ("PerspectiveCamera", {"fov_y": 45.0}),
+    "orthographic": ("OrthographicCamera", {"window": (3.0, 3.0)}),
+    "pinhole": ("PinholeCamera", {"sensor_size": (0.05, 0.05),
+                                  "sensor_distance": 0.05,
+                                  "hole_radius": 0.002}),
+    "thinlens": ("ThinLensCamera", {"sensor_size": (0.5, 0.5),
+                                    "aperture_radius": 0.02,
+                                    "focus_distance": 3.25}),
+}
+
+
+def shape_items(kind):
+    """The Scene.build shape argument of ``apps/shape_test.py``'s scene
+    ``kind``: a clipped sphere, a cylinder turned 90 degrees about x, or an
+    annular disk tilted 25 degrees."""
+    return {
+        "sphere": {"spheres": [{"radius": 1.0, "z_min": -0.8, "z_max": 0.9,
+                                "phi_max": 5.5, "material": 0}]},
+        "cylinder": {"cylinders": [{
+            "radius": 0.7, "z_min": -1.0, "z_max": 1.0, "material": 0,
+            "transform": shp.make_transform(rotate_deg=(90, 0, 0))}]},
+        "disk": {"disks": [{
+            "radius": 1.2, "inner_radius": 0.3, "material": 0,
+            "transform": shp.make_transform(rotate_deg=(25, 0, 0))}]},
+    }[kind]
+
+
+def shapes_setup(kind, camera_kind, res, device="cuda"):
+    """(scene, camera, cfg): the ``shape_items(kind)`` scene (one diffuse
+    material, an equal-energy ambient light) seen from SHAPE_EYE by the
+    ``camera_kind`` camera of SHAPE_CAMERAS; Sobol spp 4, direct lighting
+    at res x res."""
+    scene = Scene.build(SHAPE_MATERIALS, SHAPE_LIGHTS, device=device,
+                        **shape_items(kind))
+    name, kw = SHAPE_CAMERAS[camera_kind]
+    camera = getattr(cam, name).create(SHAPE_EYE, (res, res),
+                                       look_at=(0.0, 0.0, 0.0), **kw)
+    cfg = integ.RenderConfig(
+        resolution=(res, res),
+        sampler=integ.SamplerConfig(kind="sobol", spp=4),
+        integrator="direct", max_depth=1)
+    return scene, camera, cfg

@@ -11,10 +11,14 @@ inputs. Sampling decisions are detached.
 All four integrators are ported: ``path`` (MIS), ``simple`` (NEE at
 every vertex, emission found by the BSDF counted on camera/specular
 prefixes only), ``walk`` (BSDF sampling only) and ``direct``; so are the
-``independent``, ``sobol`` and ``stratified`` samplers (``sobol_global``
-raises until its ROADMAP item lands), visible or uniform hero wavelengths,
-the firefly clamp and the named sensors (``make_sensor``). The filter is
-``cfg.filter_name`` (box, triangle or gaussian).
+``independent``, ``sobol``, ``stratified`` and ``sobol_global`` samplers,
+visible or uniform hero wavelengths, the firefly clamp and the named
+sensors (``make_sensor``). The filter is ``cfg.filter_name`` (box,
+triangle, gaussian or lanczos) at ``cfg.filter_radius``.
+
+``render_pass`` and the sharded passes (``parallel/sharding.py``) go
+through one dispatch, :func:`_pass_for_pixels`, over any set of pixel ids,
+so a pixel's sample values do not depend on which pass computes it.
 
 Rendering is differentiable in the scene's material and light tables
 (``models/inverse.py``): every sampling decision is detached, the kernels'
@@ -34,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from computational_ray_tracer_tpu_torch.ops import rng
@@ -55,39 +60,60 @@ DIM_BOUNCE0 = 5
 DIMS_PER_BOUNCE = 8  # bsdf 2D + bsdf 1D + light select + light pos 2D + rr
 
 
+SAMPLERS = ("independent", "stratified", "sobol", "sobol_global")
+
+
 @dataclasses.dataclass(frozen=True)
 class SamplerConfig:
     """Pixel sampler: ``sobol`` (Owen-scrambled, padded per pixel),
-    ``stratified`` (an xs x ys grid, spp = xs * ys, jittered) or
-    ``independent``."""
+    ``stratified`` (an xs x ys grid, spp = xs * ys, jittered unless
+    ``jitter`` is off), ``independent``, or ``sobol_global`` (one
+    Owen-scrambled sequence over the whole image; ``width`` and ``m``, the
+    image width and log2 of its scale, are derived by RenderConfig)."""
     kind: str = "independent"
     spp: int = 16
     xs: int = 4
     ys: int = 4
     seed: int = 0
+    jitter: bool = True
+    width: int = 0
+    m: int = 0
 
     def __post_init__(self):
-        if self.kind not in ("sobol", "independent", "stratified"):
-            raise NotImplementedError(
-                f"sampler kind {self.kind!r} is not ported yet "
-                "(ROADMAP Queue 1)")
+        if self.kind not in SAMPLERS:
+            raise ValueError(f"unknown sampler kind {self.kind!r}")
+
+    def _pxpy(self, pixel):
+        return pixel % self.width, pixel // self.width
 
     def get_1d(self, pixel, sample_idx, dim):
         if self.kind == "stratified":
             return rng.stratified_1d(self.seed, pixel, sample_idx, dim,
-                                     self.spp)
+                                     self.spp, self.jitter)
         if self.kind == "sobol":
             return rng.sobol_owen_1d(self.seed, pixel, sample_idx, dim,
                                      spp=self.spp)
+        if self.kind == "sobol_global":
+            px, py = self._pxpy(pixel)
+            return rng.sobol_global_1d(self.seed, px, py, sample_idx, dim,
+                                       self.m)
         return rng.independent_1d(self.seed, pixel, sample_idx, dim)
 
     def get_2d(self, pixel, sample_idx, dim):
         if self.kind == "stratified":
             return rng.stratified_2d(self.seed, pixel, sample_idx, dim,
-                                     self.xs, self.ys)
+                                     self.xs, self.ys, self.jitter)
         if self.kind == "sobol":
             return rng.sobol_owen_2d(self.seed, pixel, sample_idx, dim,
                                      spp=self.spp)
+        if self.kind == "sobol_global":
+            px, py = self._pxpy(pixel)
+            if isinstance(dim, int) and dim == DIM_FILTER:
+                # the in-pixel position comes from sequence dims 0/1
+                return rng.sobol_global_pixel2d(self.seed, px, py,
+                                                sample_idx, self.m)
+            return rng.sobol_global_2d(self.seed, px, py, sample_idx, dim,
+                                       self.m)
         return rng.independent_2d(self.seed, pixel, sample_idx, dim)
 
 
@@ -99,7 +125,8 @@ class RenderConfig:
     max_depth: int = 5
     rr_start: int = 3                       # Russian roulette from here
     ray_eps_scale: float = 3e-5             # spawn offset / (|p| + t)
-    filter_name: str = "gaussian"           # box | triangle | gaussian
+    filter_name: str = "gaussian"           # box|triangle|gaussian|lanczos
+    filter_radius: tuple = (0.5, 0.5)
     lambda_mode: str = "visible"            # visible | uniform
     sensor_name: Any = None                 # None: the XYZ sensor
     clamp: float = 0.0                      # 0: no firefly clamp
@@ -113,8 +140,16 @@ class RenderConfig:
                 and self.sensor_name not in data.SENSOR_CURVES):
             raise ValueError(f"unknown sensor {self.sensor_name!r}")
         if self.filter_name not in flt.FILTERS:
-            raise NotImplementedError(
-                f"filter {self.filter_name!r} is not ported yet")
+            raise ValueError(f"unknown filter {self.filter_name!r}")
+        s = self.sampler
+        if s.kind == "sobol_global" and s.width == 0:
+            w, h = self.resolution
+            m = max(int(np.ceil(np.log2(max(w, h, 1)))), 0)
+            if s.spp > 1 << max(32 - 2 * m, 0):
+                raise ValueError("sobol_global: spp * 4^m must fit in 32 "
+                                 "bits")
+            object.__setattr__(self, "sampler",
+                               dataclasses.replace(s, width=w, m=m))
 
 
 # The bounce loop's mode for each multi-bounce integrator.
@@ -339,9 +374,8 @@ def _path_scan(scene, o, d, wl, pixel, sample_idx, cfg):
 
 
 def make_filter(cfg: RenderConfig):
-    """The config's reconstruction filter, at the radius (0.5, 0.5) of
-    every workload (the reference's default)."""
-    return flt.FILTERS[cfg.filter_name]((0.5, 0.5))
+    """The config's reconstruction filter at ``cfg.filter_radius``."""
+    return flt.FILTERS[cfg.filter_name](tuple(cfg.filter_radius))
 
 
 def make_sensor(cfg: RenderConfig):
@@ -369,12 +403,14 @@ def _sensor_rgb(cfg: RenderConfig, sensor, L, wl):
 
 
 def camera_wavefront(camera, cfg: RenderConfig, filter_obj, sample_idx,
-                     device):
+                     device, pixel=None):
     """The pass's camera wavefront: (pixel ids, wavelengths, filter weights,
-    ray origins, ray directions), one ray per pixel in raster order."""
+    ray origins, ray directions), one ray per pixel of ``pixel`` (flat
+    int64 ids; default every pixel in raster order)."""
     w, h = cfg.resolution
     s = cfg.sampler
-    pixel = torch.arange(w * h, dtype=torch.int64, device=device)
+    if pixel is None:
+        pixel = torch.arange(w * h, dtype=torch.int64, device=device)
     px = (pixel % w).to(torch.float32)
     py = (pixel // w).to(torch.float32)
     wl = _sample_wavelengths(cfg, s.get_1d(pixel, sample_idx, DIM_LAMBDA))
@@ -385,19 +421,28 @@ def camera_wavefront(camera, cfg: RenderConfig, filter_obj, sample_idx,
     return pixel, wl, fw, o, d
 
 
+def _pass_for_pixels(scene, camera, cfg: RenderConfig, filter_obj, sensor,
+                     pixel, sample_idx):
+    """One sample for each flat pixel id of ``pixel`` (None: every pixel):
+    (sensor rgb (n, 3), filter weight (n,)). The one integrator dispatch of
+    render_pass and the sharded passes."""
+    sample_idx = int(sample_idx)
+    pixel, wl, fw, o, d = camera_wavefront(camera, cfg, filter_obj,
+                                           sample_idx, scene.device, pixel)
+    if cfg.integrator == "direct":
+        L, wl_out = li_direct(scene, o, d, wl, pixel, sample_idx, cfg), wl
+    else:
+        L, wl_out = _path_scan(scene, o, d, wl, pixel, sample_idx, cfg)
+    return _sensor_rgb(cfg, sensor, L, wl_out), fw
+
+
 def render_pass(scene, camera, cfg: RenderConfig, filter_obj, sensor,
                 sample_idx):
     """One sample-per-pixel wavefront pass: (rgb (H, W, 3), weight (H, W))
     ready for Film.add_aligned."""
     w, h = cfg.resolution
-    sample_idx = int(sample_idx)
-    pixel, wl, fw, o, d = camera_wavefront(camera, cfg, filter_obj,
-                                           sample_idx, scene.device)
-    if cfg.integrator == "direct":
-        L, wl_out = li_direct(scene, o, d, wl, pixel, sample_idx, cfg), wl
-    else:
-        L, wl_out = _path_scan(scene, o, d, wl, pixel, sample_idx, cfg)
-    rgb = _sensor_rgb(cfg, sensor, L, wl_out)
+    rgb, fw = _pass_for_pixels(scene, camera, cfg, filter_obj, sensor, None,
+                               sample_idx)
     return rgb.reshape(h, w, 3), fw.reshape(h, w)
 
 

@@ -1,6 +1,6 @@
 """Scene description and unified intersection (``computational_ray_tracer_
-tpu/models/scene.py``): spheres and a triangle mesh, the mesh either brute
-force or in an octree.
+tpu/models/scene.py``): tables of spheres, cylinders and disks and a
+triangle mesh, the mesh either brute force or in an octree.
 
 On a CUDA device every mesh query goes through a hand-written kernel: the
 brute mesh through ``ops/mesh_intersect_kernel.py`` (the reference needs
@@ -28,7 +28,7 @@ from computational_ray_tracer_tpu_torch.models.materials import (
     MaterialTable, ROUGH_CONDUCTOR)
 from computational_ray_tracer_tpu_torch.models.lights import LightTable
 
-TYPE_NONE, TYPE_SPHERE, TYPE_MESH = 0, 1, 4
+TYPE_NONE, TYPE_SPHERE, TYPE_CYLINDER, TYPE_DISK, TYPE_MESH = 0, 1, 2, 3, 4
 
 
 @dataclasses.dataclass
@@ -45,6 +45,10 @@ class Scene:
     packed_octree: Optional[okern.PackedOctree] = None
     wr: float = 100.0                      # world radius (static)
     has_rough: bool = True                 # any GGX material present
+    cylinders: Optional[shp.CylinderTable] = None
+    disks: Optional[shp.DiskTable] = None
+    cylinder_mat: Optional[torch.Tensor] = None
+    disk_mat: Optional[torch.Tensor] = None
 
     @property
     def device(self):
@@ -56,8 +60,11 @@ class Scene:
     @classmethod
     def build(cls, materials, lights, spheres=None, mesh=None,
               use_octree=True, octree_capacity=None, texture_rgb=None,
-              backface_cull_dir=None, device="cuda"):
-        """Host-side assembly as the reference's ``Scene.build``. ``mesh``
+              backface_cull_dir=None, device="cuda", cylinders=None,
+              disks=None):
+        """Host-side assembly as the reference's ``Scene.build``. Shape
+        dicts (``spheres``, ``cylinders``, ``disks``) carry a ``material``
+        index. ``mesh``
         is a MeshData or (MeshData, per-triangle material ids) on
         ``device``; with ``use_octree`` it is put in an octree of leaf
         capacity ``octree_capacity`` (default ``TRIANGLE_CAPACITY``).
@@ -66,11 +73,15 @@ class Scene:
         test).
         ``texture_rgb`` (H, W, 3) linear RGB becomes sigmoid coefficients
         through the sRGB coefficient table."""
-        sph = sph_m = None
-        if spheres:
-            sph = shp.SphereTable.build(spheres, device)
-            sph_m = torch.as_tensor([int(s.get("material", 0))
-                                     for s in spheres], device=device)
+        def table(make, items):
+            if not items:
+                return None, None
+            return make(items, device), torch.as_tensor(
+                [int(s.get("material", 0)) for s in items], device=device)
+
+        sph, sph_m = table(shp.SphereTable.build, spheres)
+        cyl, cyl_m = table(shp.CylinderTable.build, cylinders)
+        dsk, dsk_m = table(shp.DiskTable.build, disks)
         tri_mat = tri_mask = tree = packed = None
         if mesh is not None:
             mesh, tri_mat = mesh if isinstance(mesh, tuple) else (mesh, None)
@@ -96,12 +107,14 @@ class Scene:
         r = 1.0
         if mesh is not None:
             r = max(r, float(mesh.positions.abs().max()))
-        if sph is not None:
-            r = max(r, float(sph.o2w[:, :3, 3].abs().max())
-                    + float(sph.radius.abs().max()))
+        for t in (sph, cyl, dsk):
+            if t is not None:
+                r = max(r, float(t.o2w[:, :3, 3].abs().max())
+                        + float(t.radius.abs().max()))
         has_rough = bool((mats.kind == ROUGH_CONDUCTOR).any())
         return cls(sph, mesh, mats, lts, sph_m, tri_mat, tex, tri_mask, tree,
-                   packed, wr=10.0 * r, has_rough=has_rough)
+                   packed, wr=10.0 * r, has_rough=has_rough, cylinders=cyl,
+                   disks=dsk, cylinder_mat=cyl_m, disk_mat=dsk_m)
 
 
 def texture_from_rgb(texture_rgb, device):
@@ -147,6 +160,18 @@ def _mesh_closest_hit(scene, o, d, t_best):
                               scene.tri_mask)[:4]
 
 
+def _analytic(scene: Scene):
+    """(type tag, table, intersect_t, surface, material ids) of each
+    analytic shape kind the scene holds, in the reference's order."""
+    kinds = ((TYPE_SPHERE, scene.spheres, shp.sphere_intersect_t,
+              shp.sphere_surface, scene.sphere_mat),
+             (TYPE_CYLINDER, scene.cylinders, shp.cylinder_intersect_t,
+              shp.cylinder_surface, scene.cylinder_mat),
+             (TYPE_DISK, scene.disks, shp.disk_intersect_t,
+              shp.disk_surface, scene.disk_mat))
+    return [k for k in kinds if k[1] is not None]
+
+
 def scene_intersect_t(scene: Scene, o, d, t_max):
     """Hit-distance phase: (t_best, type_best, idx_best, b1, b2)."""
     batch = o.shape[:-1]
@@ -155,13 +180,13 @@ def scene_intersect_t(scene: Scene, o, d, t_max):
     idx_best = torch.zeros(batch, dtype=torch.int64, device=o.device)
     b1 = torch.zeros(batch, device=o.device)
     b2 = torch.zeros(batch, device=o.device)
-    if scene.spheres is not None:
-        t_all = shp.sphere_intersect_t(o, d, t_best, scene.spheres)
+    for tag, table, intersect_t, _, _ in _analytic(scene):
+        t_all = intersect_t(o, d, t_best, table)
         j = torch.argmin(t_all, dim=-1)                # first of equal mins
         tb = torch.gather(t_all, -1, j[..., None])[..., 0]
         better = tb < t_best
         t_best = torch.where(better, tb, t_best)
-        type_best = torch.where(better, TYPE_SPHERE, type_best)
+        type_best = torch.where(better, tag, type_best)
         idx_best = torch.where(better, j, idx_best)
     if scene.mesh is not None:
         tm, ti, mb1, mb2 = _mesh_closest_hit(scene, o, d, t_best)
@@ -199,12 +224,11 @@ def scene_surface(scene: Scene, o, d, hit):
         wo=-d, backface=torch.zeros(batch, dtype=torch.bool, device=o.device))
     mat_id = torch.zeros(batch, dtype=torch.int64, device=o.device)
     t_surf = torch.where(valid, t_best, torch.ones_like(t_best))
-    if scene.spheres is not None:
-        m = valid & (type_best == TYPE_SPHERE)
-        idx = torch.clamp(idx_best, 0, scene.spheres.radius.shape[0] - 1)
-        si = _merge(si, shp.sphere_surface(o, d, t_surf, idx, scene.spheres),
-                    m)
-        mat_id = torch.where(m, scene.sphere_mat[idx], mat_id)
+    for tag, table, _, surface, mats in _analytic(scene):
+        m = valid & (type_best == tag)
+        idx = torch.clamp(idx_best, 0, table.radius.shape[0] - 1)
+        si = _merge(si, surface(o, d, t_surf, idx, table), m)
+        mat_id = torch.where(m, mats[idx], mat_id)
     if scene.mesh is not None:
         m = valid & (type_best == TYPE_MESH)
         idx = torch.clamp(idx_best, 0, scene.mesh.n_triangles - 1)
@@ -226,8 +250,8 @@ def scene_anyhit(scene: Scene, o, d, t_max):
     packet order: sorted, traced and scattered back, which changes no
     value (the reference sorts its incoherent shadow wavefronts)."""
     hit = torch.zeros(o.shape[:-1], dtype=torch.bool, device=o.device)
-    if scene.spheres is not None:
-        t_all = shp.sphere_intersect_t(o, d, t_max, scene.spheres)
+    for _, table, intersect_t, _, _ in _analytic(scene):
+        t_all = intersect_t(o, d, t_max, table)
         hit = hit | (t_all < t_max[..., None]).any(-1)
     if scene.mesh is None:
         return hit

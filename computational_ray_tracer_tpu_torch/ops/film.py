@@ -28,6 +28,23 @@ class Film:
         return Film(self.rgb_sum + rgb * weight[..., None],
                     self.weight_sum + weight, self.spp_done + spp_added)
 
+    def add_scattered(self, pixel_idx, rgb, weight, spp_added=0):
+        """Scatter-add samples (n, 3) + (n,) by flat pixel index into the
+        flattened film (``index_add``: repeated pixels accumulate)."""
+        h, w = self.weight_sum.shape
+        flat_rgb = self.rgb_sum.reshape(h * w, 3).index_add(
+            0, pixel_idx, rgb * weight[..., None])
+        flat_w = self.weight_sum.reshape(h * w).index_add(0, pixel_idx,
+                                                          weight)
+        return Film(flat_rgb.reshape(h, w, 3), flat_w.reshape(h, w),
+                    self.spp_done + spp_added)
+
+    def merge(self, other):
+        """Sum of two independently accumulated films."""
+        return Film(self.rgb_sum + other.rgb_sum,
+                    self.weight_sum + other.weight_sum,
+                    self.spp_done + other.spp_done)
+
     def resolve(self, sensor, colorspace=colorlib.SRGB, exposure=1.0,
                 to_srgb=True, clip=True):
         w = torch.clamp(self.weight_sum[..., None], min=1e-12)

@@ -1,6 +1,7 @@
 """Reconstruction filters (``computational_ray_tracer_tpu/ops/filters.py``):
 box, triangle (tent) and the clipped Gaussian, each sampled exactly through
-its inverse CDF. The windowed sinc is not ported yet."""
+its inverse CDF, and the Lanczos windowed sinc, sampled through a tabulated
+inverse CDF of |f| with sign-carrying weights."""
 
 from __future__ import annotations
 
@@ -8,8 +9,10 @@ import dataclasses
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 
+from computational_ray_tracer_tpu_torch.ops import numeric
 from computational_ray_tracer_tpu_torch.ops import sampling as smp
 
 
@@ -99,8 +102,54 @@ def gaussian_filter(radius=(1.5, 1.5), sigma=0.5):
     return Filter("gaussian", tuple(radius), ix * iy, sx, sy, ex, ey)
 
 
+def lanczos_sinc_filter(radius=(4.0, 4.0), tau=3.0, n_tab=1024):
+    """Windowed sinc with negative lobes: per axis, float64 tables of the
+    inverse CDF of |f| and of the weight f/pdf at n_tab + 1 points (the
+    reference's, cast to float32), read by linear interpolation."""
+    def axis(r):
+        xs = np.linspace(-r, r, n_tab + 1)
+        fx = numeric.windowed_sinc(torch.as_tensor(xs), r, tau).numpy()
+        absf = np.abs(fx)
+        cdf = np.concatenate([[0.0], np.cumsum(0.5 * (absf[1:] + absf[:-1])
+                                               * np.diff(xs))])
+        total = cdf[-1]
+        cdf /= total
+        inv = np.interp(np.linspace(0.0, 1.0, n_tab + 1), cdf, xs)
+        f_at_inv = np.interp(inv, xs, fx)
+        pdf_at_inv = np.interp(inv, xs, absf) / total
+        grids = {"cpu": [torch.as_tensor(g.astype(np.float32)) for g in (
+            inv, f_at_inv / np.maximum(pdf_at_inv, 1e-9), fx)]}
+        integral = float(np.trapezoid(fx, xs))
+
+        def on(device):
+            key = str(device)
+            if key not in grids:
+                grids[key] = [g.to(device) for g in grids["cpu"]]
+            return grids[key]
+
+        def lookup(grid, u):
+            x = torch.clamp(u, 0.0, 1.0) * n_tab
+            i = torch.clamp(torch.floor(x).to(torch.int64), 0, n_tab - 1)
+            t = x - i
+            return grid[i] * (1 - t) + grid[i + 1] * t
+
+        def s(u):
+            inv_grid, w_grid, _ = on(u.device)
+            return lookup(inv_grid, u), lookup(w_grid, u)
+
+        def e(x):
+            v = lookup(on(x.device)[2], (torch.clamp(x, -r, r) + r) / (2 * r))
+            return torch.where(x.abs() <= r, v, torch.zeros_like(v))
+        return s, e, integral
+
+    sx, ex, ix = axis(radius[0])
+    sy, ey, iy = axis(radius[1])
+    return Filter("lanczos", tuple(radius), ix * iy, sx, sy, ex, ey)
+
+
 FILTERS = {
     "box": box_filter,
     "triangle": triangle_filter,
     "gaussian": gaussian_filter,
+    "lanczos": lanczos_sinc_filter,
 }

@@ -15,6 +15,7 @@ at the boundary: ``torch.arange`` gives ``int64`` where the reference uses
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -270,3 +271,188 @@ def sobol_owen_2d(seed, pixel, sample_idx, dim, spp=None):
         sobol_sample_u32(idx, _u32(dim + 1) % N_SOBOL_DIMS),
         hash_u32(seed, pixel, dim + 1))
     return torch.stack([u32_to_float(v0), u32_to_float(v1)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Global Sobol' sampler: one sequence over the whole image
+# ---------------------------------------------------------------------------
+#
+# With the image scaled to 2^m x 2^m, the point index is i = frame * 4^m + j
+# and the low 2m bits j solve the GF(2) system "top m bits of dims 0 and 1
+# == the pixel's coordinates". The inverse of that system is computed on
+# the host once per m; on the device the solve is a 2m-term mask-XOR.
+# Every left shift is masked to 32 bits: the words live in int64, which
+# keeps the bits a uint32 shift drops.
+
+def _sobol_u32_host(index, dim):
+    v = np.uint32(0)
+    index = int(index)
+    k = 0
+    while index:
+        if index & 1:
+            v ^= SOBOL_MATRICES[dim, k]
+        index >>= 1
+        k += 1
+    return int(v)
+
+
+def _gf2_inv(M):
+    """Invert a square GF(2) matrix (uint8 0/1 entries) by Gauss-Jordan."""
+    n = M.shape[0]
+    A = np.concatenate([M.copy() % 2, np.eye(n, dtype=np.uint8)], axis=1)
+    for col in range(n):
+        piv = None
+        for r in range(col, n):
+            if A[r, col]:
+                piv = r
+                break
+        if piv is None:
+            raise ValueError("singular GF(2) matrix")
+        if piv != col:
+            A[[col, piv]] = A[[piv, col]]
+        for r in range(n):
+            if r != col and A[r, col]:
+                A[r] ^= A[col]
+    return A[:, n:]
+
+
+@functools.lru_cache(maxsize=None)
+def _global_sobol_cols(m):
+    """For image scale 2^m: uint32 masks C[r] such that the low-2m index
+    bits are j = XOR_r bit_r(target ^ u_frame) * C[r], where the 2m-bit
+    target packs (px << m) | py MSB-first. Host NumPy."""
+    nbits = 2 * m
+    M = np.zeros((nbits, nbits), np.uint8)
+    for k in range(nbits):            # index bit k -> output bits
+        x0 = _sobol_u32_host(1 << k, 0)
+        x1 = _sobol_u32_host(1 << k, 1)
+        vec = ((x0 >> (32 - m)) << m) | (x1 >> (32 - m))
+        for r in range(nbits):
+            M[r, k] = (vec >> (nbits - 1 - r)) & 1
+    Minv = _gf2_inv(M)
+    cols = np.zeros(nbits, np.uint32)
+    for r in range(nbits):
+        mask = 0
+        for k in range(nbits):
+            if Minv[k, r]:
+                mask |= 1 << k
+        cols[r] = mask
+    return cols
+
+
+def sobol_global_index(px, py, frame, m: int):
+    """Index of the ``frame``-th global Sobol' point that lands in pixel
+    (px, py) of the 2^m x 2^m image. Requires frame < 2^(32-2m)."""
+    device = _device_of(px, py, frame)
+    if m == 0:
+        return _u32(frame) + torch.zeros_like(_u32(px))
+    i_hi = torch.as_tensor((_u32(frame) << (2 * m)) & MASK, device=device)
+    x0 = sobol_sample_u32(i_hi, 0)
+    x1 = sobol_sample_u32(i_hi, 1)
+    sh = 32 - m
+    u = (((x0 >> sh) << m) & MASK) | (x1 >> sh)
+    t = (((_u32(px) << m) & MASK) | _u32(py)) ^ u
+    nbits = 2 * m
+    cols = torch.as_tensor(_global_sobol_cols(m).astype(np.int64),
+                           device=device)
+    j = None
+    for k in range(nbits):
+        term = cols[k] * ((t >> (nbits - 1 - k)) & 1)
+        j = term if j is None else j ^ term
+    return i_hi | j
+
+
+def sobol_global_pixel2d(seed, px, py, frame, m: int):
+    """The global point's position inside its pixel: dims 0 and 1 shifted
+    left by m, the bits below the pixel grid."""
+    idx = sobol_global_index(px, py, frame, m)
+    x0 = (sobol_sample_u32(idx, 0) << m) & MASK
+    x1 = (sobol_sample_u32(idx, 1) << m) & MASK
+    return torch.stack([u32_to_float(x0), u32_to_float(x1)], dim=-1)
+
+
+def _sobol_global_dim_u32(seed, idx, dim):
+    """One scrambled value of the global sequence. The Owen scramble is
+    keyed by the dimension only, so every pixel shares one stratified
+    sequence; dims past the table wrap while the scramble stays keyed on
+    the unwrapped dim."""
+    v = sobol_sample_u32(idx, _u32(dim) % N_SOBOL_DIMS)
+    return fast_owen_scramble(v, hash_u32(seed, dim, 0x6A09E667))
+
+
+def sobol_global_1d(seed, px, py, frame, dim, m: int):
+    """Draw for integrator dimension ``dim``: sequence dims 0/1 place the
+    point in its pixel, so dim d reads sequence dim d + 2."""
+    idx = sobol_global_index(px, py, frame, m)
+    return u32_to_float(_sobol_global_dim_u32(seed, idx,
+                                              (_u32(dim) + 2) & MASK))
+
+
+def sobol_global_2d(seed, px, py, frame, dim, m: int):
+    idx = sobol_global_index(px, py, frame, m)
+    d = (_u32(dim) + 2) & MASK
+    v0 = _sobol_global_dim_u32(seed, idx, d)
+    v1 = _sobol_global_dim_u32(seed, idx, (d + 1) & MASK)
+    return torch.stack([u32_to_float(v0), u32_to_float(v1)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Host-side PCG32 (a NumPy test tool, as in the reference)
+# ---------------------------------------------------------------------------
+
+ONE_MINUS_EPSILON = np.float32(np.nextafter(np.float32(1.0),
+                                            np.float32(0.0)))
+
+
+class PCG32:
+    """NumPy PCG32 with SetSequence/Advance, for host-side determinism
+    checks (not a device path)."""
+    MULT = np.uint64(0x5851F42D4C957F2D)
+    DEFAULT_STATE = np.uint64(0x853C49E6748FEA9B)
+    DEFAULT_STREAM = np.uint64(0xDA3E39CB94B95BDB)
+
+    def __init__(self, seq_index=None, offset=None):
+        self.state = self.DEFAULT_STATE
+        self.inc = self.DEFAULT_STREAM
+        if seq_index is not None:
+            self.set_sequence(np.uint64(seq_index), None if offset is None
+                              else np.uint64(offset))
+
+    def set_sequence(self, seq_index, offset=None):
+        with np.errstate(over="ignore"):
+            self.state = np.uint64(0)
+            self.inc = (np.uint64(seq_index) << np.uint64(1)) | np.uint64(1)
+            self.uniform_u32()
+            self.state += (self.DEFAULT_STATE if offset is None
+                           else np.uint64(offset))
+            self.uniform_u32()
+
+    def uniform_u32(self):
+        with np.errstate(over="ignore"):
+            old = self.state
+            self.state = old * self.MULT + self.inc
+            xorshifted = np.uint32(((old >> np.uint64(18)) ^ old)
+                                   >> np.uint64(27))
+            rot = np.uint32(old >> np.uint64(59))
+            return np.uint32((xorshifted >> rot) | (xorshifted << (
+                (~rot + np.uint32(1)) & np.uint32(31))))
+
+    def uniform_float(self):
+        return min(float(np.float32(self.uniform_u32())
+                         * np.float32(2.0 ** -32)),
+                   float(ONE_MINUS_EPSILON))
+
+    def advance(self, delta):
+        """O(log n) jump-ahead."""
+        with np.errstate(over="ignore"):
+            cur_mult, cur_plus = self.MULT, self.inc
+            acc_mult, acc_plus = np.uint64(1), np.uint64(0)
+            delta = np.uint64(delta)
+            while delta > 0:
+                if delta & np.uint64(1):
+                    acc_mult *= cur_mult
+                    acc_plus = acc_plus * cur_mult + cur_plus
+                cur_plus = (cur_mult + np.uint64(1)) * cur_plus
+                cur_mult *= cur_mult
+                delta >>= np.uint64(1)
+            self.state = acc_mult * self.state + acc_plus

@@ -1,0 +1,374 @@
+"""The port's sharded render and train step (``parallel/sharding.py``)
+against its own single-process render and gradient and against the JAX
+package's sharded path on the 8-CPU mesh: the counterparts of the seven
+tests of ``tests/test_sharding.py`` at their tolerances, plus the film's
+scatter/merge and the ranks' scene bits.
+
+The ranks are gloo processes on the CPU, started with
+``torch.multiprocessing`` (spawn, ``chip_smoke.spawn_ranks``: killed past
+300 s) over a ``file://`` store under the test's temporary directory, one
+thread each. One spawn of 8 ranks runs every case
+of the layouts (8, 1), (4, 2) and (2, 4), each its own DeviceMesh over the
+same 8 ranks; one spawn of 1 rank runs (1, 1). Each rank writes its results
+to a file. The scenes are the JAX package's, exported as numpy arrays and
+rebuilt by every rank with ``convert.scene_from_numpy``, so both packages
+render bit-identical parameters. JAX is imported by the tests only, never
+by the ranks.
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import spawn_ranks
+from computational_ray_tracer_tpu_torch import convert
+from computational_ray_tracer_tpu_torch.models import integrator as tinteg
+from computational_ray_tracer_tpu_torch.models import inverse as tinv
+from computational_ray_tracer_tpu_torch.ops import camera as tcam
+from computational_ray_tracer_tpu_torch.ops import film as tfilm
+from computational_ray_tracer_tpu_torch.parallel import sharding as par
+
+LAYOUTS = [(8, 1), (4, 2), (2, 4), (1, 1)]
+INTEGRATORS = ["direct", "walk", "simple", "path"]
+GRAD_LAYOUTS = {1: (8, 1), 2: (4, 2), 4: (2, 4)}     # n_sp -> layout
+
+
+def _camera(res):
+    return tcam.PerspectiveCamera.create((0, 0, -4), (res, res), fov_y=40.0,
+                                         look_at=(0, 0, 0))
+
+
+def _cfg(res, spp, **kw):
+    """``tests/test_sharding.py``'s cfg, in the port (or ``mod``)."""
+    mod = kw.pop("mod", tinteg)
+    return dataclasses.replace(mod.RenderConfig(
+        resolution=(res, res),
+        sampler=mod.SamplerConfig(kind="sobol", spp=spp),
+        integrator="direct"), **kw)
+
+
+def _octree_cfg(mod=tinteg):
+    return mod.RenderConfig(
+        resolution=(16, 16), sampler=mod.SamplerConfig(kind="sobol", spp=2),
+        integrator="path", max_depth=3)
+
+
+def _independent_cfg(spp):
+    """The 16x16 direct cfg with the independent sampler, whose draws take
+    any sample index (the sobol and stratified permutations hang for an
+    index >= spp when spp is not a power of two, in both packages)."""
+    return dataclasses.replace(_cfg(16, spp), sampler=tinteg.SamplerConfig(
+        kind="independent", spp=spp))
+
+
+def _cases(n_dp, n_sp):
+    """The cases a layout runs: (name, scene key, config)."""
+    cases = [("film", "sphere16", _cfg(16, 4))]
+    if (n_dp, n_sp) == (4, 2):
+        cases += [(f"integrator_{i}", "sphere16",
+                   _cfg(16, 2, integrator=i, max_depth=3))
+                  for i in INTEGRATORS]
+        cases.append(("octree", "cornell16", _octree_cfg()))
+        cases.append(("spp3", "sphere16", _independent_cfg(3)))
+    return cases
+
+
+def _grad(scene, mesh, sample_idx=0):
+    """The sharded albedo gradient of the direct 8x8 loss against 0.1."""
+    cfg = _cfg(8, 2)
+    step, init, _ = par.make_train_step(
+        scene, _camera(8), cfg, mesh, tinv.albedo_params(scene),
+        optimizer=lambda leaves: torch.optim.SGD(leaves, lr=1.0))
+    params = tinv.leaf_params(tinv.albedo_params(scene)[0](scene))
+    _, _, loss = step(params, init(params), scene, torch.full((8, 8, 3), 0.1),
+                      sample_idx)
+    return {"grad": params["albedo_coeffs"].grad.clone(), "loss": float(loss)}
+
+
+def _train(scene, mesh):
+    """8 Adam steps of the path/MIS depth-2 8x8 loss against black."""
+    cfg = _cfg(8, 2, integrator="path", max_depth=2)
+    extract_insert = tinv.albedo_params(scene)
+    step, init, _ = par.make_train_step(scene, _camera(8), cfg, mesh,
+                                        extract_insert)
+    params = tinv.leaf_params(extract_insert[0](scene))
+    p0 = params["albedo_coeffs"].detach().clone()
+    opt = init(params)
+    losses = []
+    for i in range(8):
+        params, opt, loss = step(params, opt, scene, torch.zeros((8, 8, 3)),
+                                 i * 2)
+        losses.append(float(loss))
+    return {"losses": losses, "p0": p0,
+            "p1": params["albedo_coeffs"].detach().clone()}
+
+
+def _rank_main(rank, world, tmp):
+    """One rank: join the group, rebuild the scenes, run every layout of
+    this world size, write the results to tmp/rank<rank>_<world>.pt."""
+    torch.set_num_threads(1)
+    out = {"init": par.init_distributed(
+        "file://" + os.path.join(tmp, f"store{world}"), world, rank,
+        device_type="cpu")}
+    arrays, cornell_camera = torch.load(os.path.join(tmp, "scenes.pt"),
+                                        weights_only=False)
+    scenes = {k: convert.scene_from_numpy(v, "cpu") for k, v in
+              arrays.items()}
+    out["digest"] = {k: par.scene_digest(s) for k, s in scenes.items()}
+    try:
+        par.make_mesh(n_dp=world, n_sp=2, device_type="cpu")
+    except ValueError as err:
+        out["too_large"] = str(err)
+    if world > 1:
+        out["global_mesh"] = tuple(par.global_mesh(
+            n_sp=2, device_type="cpu").mesh.shape)
+    for n_dp, n_sp in [lay for lay in LAYOUTS if lay[0] * lay[1] == world]:
+        mesh = par.make_mesh(n_dp, n_sp, device_type="cpu")
+        res = out[(n_dp, n_sp)] = {"shape": tuple(mesh.mesh.shape)}
+        for name, key, cfg in _cases(n_dp, n_sp):
+            film, _ = par.render_distributed(
+                scenes[key], _camera(16) if key == "sphere16"
+                else cornell_camera, cfg, mesh)
+            res[name] = film
+        if (n_dp, n_sp) in GRAD_LAYOUTS.values():
+            res["grad"] = _grad(scenes["sphere8"], mesh)
+        if n_dp > 1:
+            try:         # 9 x 9 pixels do not split over dp
+                par.make_sharded_render(scenes["sphere16"], _camera(9),
+                                        _cfg(9, 1), mesh)
+            except ValueError as err:
+                res["uneven"] = str(err)
+        if (n_dp, n_sp) == (4, 2):
+            res["train"] = _train(scenes["sphere8"], mesh)
+    torch.save(out, os.path.join(tmp, f"rank{rank}_{world}.pt"))
+
+
+# ---------------------------------------------------------------------------
+# The JAX side (imported here, in the test process only)
+# ---------------------------------------------------------------------------
+
+def _jax_scenes():
+    from __graft_entry__ import _cornell_setup
+    from test_sharding import scene_and_camera
+    sphere16, jcam16 = scene_and_camera(16)
+    sphere8, jcam8 = scene_and_camera(8)
+    cornell, ccam, _ = _cornell_setup(res=16, spp=2, use_octree=True,
+                                      use_pallas=True)
+    return {"sphere16": (sphere16, jcam16), "sphere8": (sphere8, jcam8),
+            "cornell16": (cornell, ccam)}
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Spawn the 8-rank and the 1-rank worlds once; returns (the JAX
+    scenes, the port's scenes, {world: [each rank's results]})."""
+    from test_torch_render import export_scene
+    tmp = str(tmp_path_factory.mktemp("ranks"))
+    jscenes = _jax_scenes()
+    arrays = {k: export_scene(s) for k, (s, _) in jscenes.items()}
+    c = jscenes["cornell16"][1]
+    cornell_camera = tcam.PerspectiveCamera(
+        c.position, c.basis, c.resolution, c.fov_y, c.lens_radius,
+        c.focal_distance)
+    torch.save((arrays, cornell_camera), os.path.join(tmp, "scenes.pt"))
+    results = {}
+    for n in (8, 1):
+        spawn_ranks(_rank_main, (n, tmp), n, timeout_s=300)
+        results[n] = [torch.load(os.path.join(tmp, f"rank{r}_{n}.pt"),
+                                 weights_only=False) for r in range(n)]
+    tscenes = {k: convert.scene_from_numpy(arrays[k], "cpu")
+               for k in jscenes}
+    return jscenes, tscenes, cornell_camera, results
+
+
+def _layout(world, n_dp, n_sp):
+    """Every rank's results for a layout."""
+    return [r[(n_dp, n_sp)] for r in world[3][n_dp * n_sp]]
+
+
+def _render(world, key, cfg):
+    tscene = world[1][key]
+    camera = _camera(16) if key == "sphere16" else world[2]
+    return tinteg.render(tscene, camera, cfg)[0]
+
+
+def _assert_film(ranks, name, ref, rtol, atol):
+    for r in ranks:
+        film = r[name]
+        np.testing.assert_allclose(film.rgb_sum.numpy(), ref.rgb_sum.numpy(),
+                                   rtol=rtol, atol=atol)
+        np.testing.assert_allclose(film.weight_sum.numpy(),
+                                   ref.weight_sum.numpy(), rtol=rtol,
+                                   atol=atol)
+        assert film.spp_done == ref.spp_done
+
+
+def test_mesh_construction(world):
+    """A (dp, sp) mesh over the world; ValueError naming the devices when
+    the mesh is larger than the world (8 ranks asked for 8x2, 1 rank for
+    1x2)."""
+    for n, ranks in world[3].items():
+        for r in ranks:
+            assert "devices" in r["too_large"], r["too_large"]
+    for n_dp, n_sp in LAYOUTS:
+        for r in _layout(world, n_dp, n_sp):
+            assert r["shape"] == (n_dp, n_sp)
+
+
+def test_make_mesh_cuda_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        par.make_mesh(1, 1, device_type="cuda")
+
+
+@pytest.mark.parametrize("integrator", INTEGRATORS)
+def test_sharded_matches_single_device_all_integrators(world, integrator):
+    """Every integrator goes through the one dispatch of render_pass:
+    the (4, 2) film equals the single-process render()."""
+    cfg = _cfg(16, 2, integrator=integrator, max_depth=3)
+    _assert_film(_layout(world, 4, 2), f"integrator_{integrator}",
+                 _render(world, "sphere16", cfg), rtol=1e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("n_dp,n_sp", LAYOUTS)
+def test_sharded_matches_single_device(world, n_dp, n_sp):
+    """Any layout gives the single-process film (placement-invariant
+    samples)."""
+    _assert_film(_layout(world, n_dp, n_sp), "film",
+                 _render(world, "sphere16", _cfg(16, 4)), rtol=1e-5,
+                 atol=2e-6)
+
+
+def test_render_distributed_steps_past_spp_as_the_reference(world):
+    """spp 3 over n_sp 2 renders samples 0-3 (the reference's loop over
+    range(0, spp, n_sp)): the film is render()'s at spp 4; and a pixel
+    count that does not split over dp raises."""
+    _assert_film(_layout(world, 4, 2), "spp3",
+                 _render(world, "sphere16", _independent_cfg(4)), rtol=1e-5,
+                 atol=2e-6)
+    for n_dp, n_sp in LAYOUTS[:3]:
+        for r in _layout(world, n_dp, n_sp):
+            assert "do not split" in r["uneven"]
+
+
+def test_sharded_matches_jax_render_distributed(world):
+    """The port's (4, 2) film against the JAX package's render_distributed
+    on the (4, 2) mesh of 8 CPU devices, atol 2e-3*max."""
+    import jax
+    from computational_ray_tracer_tpu.models import integrator as jinteg
+    from computational_ray_tracer_tpu.parallel import sharding as jpar
+    jscene, jcamera = world[0]["sphere16"]
+    mesh = jpar.make_mesh(n_dp=4, n_sp=2, devices=jax.devices("cpu"))
+    ref, _ = jpar.render_distributed(jscene, jcamera,
+                                     _cfg(16, 4, mod=jinteg), mesh)
+    ref_rgb = np.asarray(ref.rgb_sum)
+    for r in _layout(world, 4, 2):
+        np.testing.assert_allclose(r["film"].rgb_sum.numpy(), ref_rgb,
+                                   rtol=0, atol=2e-3 * ref_rgb.max())
+        np.testing.assert_allclose(r["film"].weight_sum.numpy(),
+                                   np.asarray(ref.weight_sum), rtol=1e-5,
+                                   atol=2e-6)
+        assert r["film"].spp_done == int(ref.spp_done) == 4
+
+
+def test_sharded_train_step_runs_and_reduces(world):
+    for r in _layout(world, 4, 2):
+        t = r["train"]
+        assert np.isfinite(t["losses"]).all()
+        assert not torch.allclose(t["p1"], t["p0"])              # moved
+        assert np.mean(t["losses"][-3:]) <= np.mean(t["losses"][:3])
+    first = _layout(world, 4, 2)[0]["train"]
+    for r in _layout(world, 4, 2)[1:]:
+        assert r["train"]["losses"] == first["losses"]
+        assert torch.equal(r["train"]["p1"], first["p1"])
+
+
+@pytest.mark.parametrize("n_sp", sorted(GRAD_LAYOUTS))
+def test_sharded_gradients_match_unsharded(world, n_sp):
+    """The gradient averaged over the ranks equals the unsharded port's
+    over samples 0..n_sp-1 and the JAX package's sharded train step's
+    (optax.sgd(1.0): the update is the gradient) on the same layout."""
+    import jax
+    import optax
+    from computational_ray_tracer_tpu.models import inverse as jinv
+    from computational_ray_tracer_tpu.parallel import sharding as jpar
+    from computational_ray_tracer_tpu.models import integrator as jinteg
+    n_dp = GRAD_LAYOUTS[n_sp][0]
+    tscene = world[1]["sphere8"]
+    target = torch.full((8, 8, 3), 0.1)
+    render_image, _ = tinv.make_render_fn(_camera(8), _cfg(8, 2), spp=n_sp)
+    params = tinv.leaf_params(tinv.albedo_params(tscene)[0](tscene))
+    loss = torch.mean((render_image(tinv.albedo_params(tscene)[1](
+        tscene, params)) - target) ** 2)
+    g_ref = torch.autograd.grad(loss, [params["albedo_coeffs"]])[0].numpy()
+    loss = float(loss.detach())
+
+    jscene, jcamera = world[0]["sphere8"]
+    extract, insert = jinv.albedo_params(jscene)
+    step, init, _ = jpar.make_train_step(
+        jscene, jcamera, _cfg(8, 2, mod=jinteg),
+        jpar.make_mesh(n_dp=n_dp, n_sp=n_sp, devices=jax.devices("cpu")),
+        (extract, insert), optimizer=optax.sgd(1.0))
+    jp = extract(jscene)
+    jp_new, _, jloss = step(jp, init(jp), jscene, np.full((8, 8, 3), 0.1,
+                                                          np.float32), 0)
+    g_jax = np.asarray(jp["albedo_coeffs"]) - np.asarray(
+        jp_new["albedo_coeffs"])
+    for r in _layout(world, n_dp, n_sp):
+        g = r["grad"]["grad"].numpy()
+        np.testing.assert_allclose(g, g_ref, rtol=1e-3, atol=1e-7)
+        np.testing.assert_allclose(g, g_jax, rtol=1e-3, atol=1e-7)
+        assert r["grad"]["loss"] == pytest.approx(loss, rel=1e-5)
+        assert r["grad"]["loss"] == pytest.approx(float(jloss), rel=1e-3)
+
+
+def test_global_mesh_and_init(world):
+    """init_distributed: (8, 1) in the 8-rank world it started, a no-op
+    (1, 1) in a single process; global_mesh(n_sp=2) spans every rank."""
+    for r in world[3][8]:
+        assert r["init"] == (8, 1)
+        assert r["global_mesh"] == (4, 2)
+    assert world[3][1][0]["init"] == (1, 1)
+
+
+def test_sharded_packed_octree_matches_single_device(world):
+    """The Cornell box in a packed octree (the octree wrappers' plain
+    traversal on the CPU) renders the single-process film at (4, 2)."""
+    _assert_film(_layout(world, 4, 2), "octree",
+                 _render(world, "cornell16", _octree_cfg()), rtol=1e-4,
+                 atol=1e-5)
+
+
+def test_ranks_hold_identical_scenes(world):
+    """Every rank rebuilt bit-identical scenes, packed octree included, and
+    they equal the test process's."""
+    digests = [r["digest"] for ranks in world[3].values() for r in ranks]
+    own = {k: par.scene_digest(s) for k, s in world[1].items()}
+    assert all(d == own for d in digests)
+    assert world[1]["cornell16"].packed_octree is not None
+
+
+def test_film_scatter_and_merge_match_jax():
+    """Film.add_scattered (repeated pixel ids accumulate) and Film.merge
+    against the JAX film's."""
+    from computational_ray_tracer_tpu.ops import film as jfilm
+    gen = np.random.default_rng(5)
+    pix = gen.integers(0, 12 * 8, 300)
+    rgb = gen.uniform(0, 2, (300, 3)).astype(np.float32)
+    w = gen.uniform(0, 1, 300).astype(np.float32)
+    jf = jfilm.Film.create((12, 8)).add_scattered(pix, rgb, w, 1)
+    tf = tfilm.Film.create((12, 8)).add_scattered(
+        torch.as_tensor(pix), torch.as_tensor(rgb), torch.as_tensor(w), 1)
+    np.testing.assert_allclose(tf.rgb_sum.numpy(), np.asarray(jf.rgb_sum),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tf.weight_sum.numpy(),
+                               np.asarray(jf.weight_sum), rtol=1e-6,
+                               atol=1e-6)
+    jm, tm = jf.merge(jf), tf.merge(tf)
+    np.testing.assert_allclose(tm.rgb_sum.numpy(), np.asarray(jm.rgb_sum),
+                               rtol=1e-6, atol=1e-6)
+    assert tm.spp_done == int(jm.spp_done) == 2

@@ -31,8 +31,10 @@ def test_backward_case_holds_the_plain_backward(cs, capsys):
 def test_training_phases_run_on_cpu(cs, capsys):
     """14a/14b at config 5's small scale and 2 steps, 14c at 16x16, 14d
     at full size (32x32, 1,280 triangles) and 15 at 16x16."""
-    launches, call = cs.config5_phase("cpu", "cpu", scale="small", steps=2)
+    launches, call, s_step = cs.config5_phase("cpu", "cpu", scale="small",
+                                              steps=2)
     assert call is None and set(launches) >= {"interp_backward"}
+    assert s_step > 0
     assert cs.headline_grad_phase("cpu", "cpu", res=16) is None
     cs.octree_grad_phase("cpu")
     cs.options_phase("cpu", res=16)
@@ -42,3 +44,26 @@ def test_training_phases_run_on_cpu(cs, capsys):
         assert phase + " " in out
     assert out.count("phase15 ") == len(cs.RENDER_OPTIONS)
     assert ik.LAUNCHES_BACKWARD == 0
+
+
+def test_sharded_and_option_phases_run_on_cpu(cs, capsys, monkeypatch):
+    """16 at 16x16 spp 4 (world size 1, then two gloo ranks of one thread
+    each) against a render() film with config 5 at its small scale, and 17
+    at 16x16 (the sobol_global draws bit for bit, the option and camera
+    passes)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    from computational_ray_tracer_tpu_torch import entry
+    from computational_ray_tracer_tpu_torch.models import integrator as integ
+    scene, camera, cfg = entry.cornell_setup(16, 4, device="cpu")
+    film, _ = integ.render(scene, camera, cfg, chunk=4)
+    cs.sharded_phase("cpu", "cpu", film, 0.0, 0.0, res=16, spp=4,
+                     scale="small")
+    assert not torch.distributed.is_initialized()
+    cs.options_card_phase("cpu", "cpu", res=16, spp=4, small=16)
+    out = capsys.readouterr().out
+    assert out.count("phase16a ") == 1 and '"bitwise": true' in out
+    assert out.count("phase16b ") == len(cs.TWO_RANK_LAYOUTS)
+    assert out.count("phase16c ") == 1 + len(cs.TWO_RANK_LAYOUTS)
+    assert out.count("phase17a ") == 1
+    assert out.count("phase17b ") == len(cs.NEW_OPTIONS)
+    assert out.count("phase17c ") == 3 * len(cs.NEW_CAMERAS)
