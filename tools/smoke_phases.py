@@ -1,0 +1,64 @@
+"""``chip_smoke.py``'s sharded and option phases (16 and 17) alone, after
+the Cornell headline render of its phase 4 that phase 16 is held to.
+
+    python tools/smoke_phases.py
+
+Builds the kernels, renders the Cornell headline (512x512, spp 32,
+path/MIS depth 4) through ``render()`` after one warm-up pass, then runs
+``chip_smoke.sharded_phase`` (16: ``render_distributed`` at world size 1
+over NCCL, two spawned ranks on the card over gloo, config 5's sharded
+train step) and ``chip_smoke.options_card_phase`` (17: the sobol_global
+headline and the 128x128 option and camera passes against the CPU), each
+printing its lines as in the smoke; then one line of each part's seconds.
+Phase 16's config 5 line carries no 14b time (14b does not run here).
+Needs a CUDA card; imports nothing of JAX.
+"""
+
+import os
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402
+from computational_ray_tracer_tpu_torch import entry  # noqa: E402
+from computational_ray_tracer_tpu_torch.kernels import build  # noqa: E402
+from computational_ray_tracer_tpu_torch.models import (  # noqa: E402
+    integrator as integ)
+from computational_ray_tracer_tpu_torch.ops import film as filmmod  # noqa: E402
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("smoke_phases.py: no CUDA device")
+    t_start = time.perf_counter()
+    card = cs.card_line()
+    print(card, torch.__version__, torch.version.cuda, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()
+    dev = torch.device("cuda", 0)
+    scene, camera, cfg = entry.cornell_setup(cs.HEADLINE_RES,
+                                             cs.HEADLINE_SPP, dev)
+    integ.render(scene, camera, cfg, passes=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    film, _ = integ.render(scene, camera, cfg, chunk=cs.HEADLINE_SPP)
+    torch.cuda.synchronize()
+    s_pass = (time.perf_counter() - t0) / cs.HEADLINE_SPP
+    ref = filmmod.Film(film.rgb_sum.cpu(), film.weight_sum.cpu(),
+                       film.spp_done)
+    del scene, film
+    t1 = time.perf_counter()
+    cs.sharded_phase(dev, card, ref, s_pass, None)
+    t2 = time.perf_counter()
+    cs.options_card_phase(dev, card)
+    t3 = time.perf_counter()
+    print("seconds", {"render_s_per_pass": s_pass, "phase16": t2 - t1,
+                      "phase17": t3 - t2, "total": t3 - t_start},
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()
