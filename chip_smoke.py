@@ -123,9 +123,36 @@ failed check raises, so the script exits non-zero:
    1e-5 (barycentric; counted); (c) entry.shapes_setup's sphere, cylinder
    and disk under the orthographic, pinhole and thin-lens cameras at
    128x128, each pass against the CPU's at atol 2e-3*max;
-13. (printed after 17) a JSON line of the kernels, with a row for each
+18. the raytracer app at its full width (apps.raytracer.main: the Cornell
+   box and a mirror sphere, 256x256, Sobol spp 64, path/MIS depth 5, the
+   brute-force mesh): the brute kernel launched in both modes and the
+   interpolation kernel, final.png read back without PIL equal to
+   to_uint8 of the resolved film.npz and through image_checks, 64 pass
+   records in metrics.jsonl, s/pass and rays/s as RenderMeter logs them;
+   then a second out-dir rendered to 32 passes, checkpointed through
+   RenderCheckpointer and resumed by main() to 64: its film.npz equal to
+   the straight run's bit for bit;
+19. the shape_test app at 128x128 on the card and on the CPU: equal hit
+   fractions and brute-force triangle-test totals, the normals and uvs
+   of every scene within 1e-5 off the grazing hits (|cos| < 0.2, counted),
+   octree_matches_brute on both, the octree
+   and brute kernels launched (the octree's test total is the kernel's on
+   the card and the plain traversal's on the CPU; both printed);
+20. scenes as data: the 327,680-triangle displaced icosphere written with
+   save_obj and the ~870k-triangle dragon stand-in with save_ply (binary),
+   each read back by the native and the Python loaders (equal arrays,
+   equal to the generator's triangles); MeshCache.load of the PLY equal
+   to MeshData.build of the generator's arrays; a JSON scene file naming
+   the OBJ (octree on) through load_scene_file, rendered 4 passes at
+   512x512, path/MIS depth 4, with both octree modes and the
+   interpolation kernel launched, against the same mesh built in memory
+   (2e-3*max; bitwise equality reported); load, octree-build and pass
+   times;
+13. (printed after 20) a JSON line of the kernels, with a row for each
    brute-force mode, each launch of 4b, each launch of 10b and 12b, the
-   interpolation kernel and each case of its backward (9b)
+   interpolation kernel and each case of its backward (9b); the rows of
+   both brute-force modes, both octree modes and the interpolation
+   kernel also carry their launches in phases 18-20 (launches_by_phase)
    (CUDA-event medians: of 5 for
    the kernels, of 3 for the plain versions and the brute kernel at full
    mesh size, one run of the plain traversal in 10b and 12b; the brute
@@ -151,6 +178,8 @@ import torch
 import torch.nn.functional as F
 
 from computational_ray_tracer_tpu_torch import convert, entry
+from computational_ray_tracer_tpu_torch.apps import raytracer as rt_app
+from computational_ray_tracer_tpu_torch.apps import shape_test as st_app
 from computational_ray_tracer_tpu_torch.kernels import build
 from computational_ray_tracer_tpu_torch.models import integrator as integ
 from computational_ray_tracer_tpu_torch.models import inverse as inv
@@ -164,7 +193,8 @@ from computational_ray_tracer_tpu_torch.ops import sensor as sen
 from computational_ray_tracer_tpu_torch.ops import film as filmmod
 from computational_ray_tracer_tpu_torch.ops import triangle as trimod
 from computational_ray_tracer_tpu_torch.parallel import sharding as par
-from computational_ray_tracer_tpu_torch.utils import mesh_gen
+from computational_ray_tracer_tpu_torch.utils import (
+    checkpoint, config as cfgmod, image, mesh_gen, obj_loader, ply_loader)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "computational_ray_tracer_tpu_torch/csrc/"
@@ -228,6 +258,25 @@ NEW_OPTIONS = {
 }
 NEW_CAMERAS = ("orthographic", "pinhole", "thinlens")
 EDGE_BARY = 1e-5
+# 19: the card's normals and uvs against the CPU's, on the hits whose
+# camera ray meets the surface at |cos| >= GRAZING_COS: nearer the
+# silhouette a one-ulp change of the ray moves the normal of the sphere by
+# up to 6e-5 on the CPU (4.7e-6 at two ulps from |cos| 0.2 on).
+SHAPE_ATOL = 1e-5
+GRAZING_COS = 0.2
+# 20: the JSON scene's mesh (the displaced icosphere) and its lighting, as
+# entry.mesh327k_setup's; the film against the in-memory mesh's.
+SCENE_FILE_SPEC = {
+    "render": {"integrator": "path", "max_depth": 4,
+               "sampler": {"kind": "sobol"}},
+    "camera": {"kind": "perspective", "position": [0, 0.5, -3.4],
+               "look_at": [0, 0, 0], "fov_y": 40.0},
+    "materials": [{"kind": "diffuse", "albedo_rgb": [0.75, 0.71, 0.62]}],
+    "lights": [{"kind": "distant", "direction": [-0.4, -1.0, 0.5],
+                "rgb": [1.0, 1.0, 1.0], "scale": 4.0},
+               {"kind": "ambient", "spd_named": "stdillum-D65",
+                "scale": 0.15}],
+}
 
 
 def card_line():
@@ -1550,6 +1599,229 @@ def options_card_phase(dev, card, res=HEADLINE_RES, spp=HEADLINE_SPP,
                         dev)
 
 
+def film_arrays(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in ("rgb_sum", "weight_sum", "spp_done")}
+
+
+def raytracer_phase(dev, card, spp=None, res=None):
+    """Phase 18 (see the module docstring); ``spp`` and ``res`` cut it
+    down for the CPU tests (None: the app's 64 and 256x256)."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        straight, resumed = (os.path.join(tmp, k) for k in ("a", "b"))
+        zero_counts()
+        t0 = time.perf_counter()
+        rt_app.main(outdir=straight, spp=spp, resolution=res, device=dev)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        launches = read_counts()
+        assert torch.device(dev).type != "cuda" or min(
+            launches["brute_closest"], launches["brute_anyhit"],
+            launches["interp"]) > 0, f"phase18 launched {launches}"
+        scene, camera, cfg = rt_app.setup(spp, res, dev)
+        passes = cfg.sampler.spp
+        film, _ = checkpoint.load_film(os.path.join(straight, "film.npz"),
+                                       dev)
+        want = image.to_uint8(film.resolve(integ.make_sensor(cfg)))
+        png = os.path.join(straight, "final.png")
+        with open(png, "rb") as fh:
+            assert np.array_equal(image.decode_png(fh.read()), want), \
+                "phase18: final.png differs from the resolved film"
+        img = image.read_image(png)
+        assert np.array_equal(img, want.astype(np.float32) / 255.0)
+        mean, left, right = image_checks(img)
+        with open(os.path.join(straight, "metrics.jsonl")) as fh:
+            records = [json.loads(line) for line in fh]
+        assert [r["event"] for r in records] == ["pass"] * passes, \
+            f"phase18: {len(records)} metrics records for {passes} passes"
+        pngs = sorted(f for f in os.listdir(straight)
+                      if f.startswith("progress_"))
+
+        film, _ = integ.render(scene, camera, cfg, passes=passes // 2)
+        ck = checkpoint.RenderCheckpointer(resumed, every=passes // 2)
+        assert ck.maybe_save(film), \
+            "phase18: the half-way film was not checkpointed"
+        del scene, film
+        t1 = time.perf_counter()
+        rt_app.main(outdir=resumed, spp=spp, resolution=res, device=dev)
+        sync(dev)
+        resume_s = time.perf_counter() - t1
+        a = film_arrays(os.path.join(straight, "film.npz"))
+        b = film_arrays(os.path.join(resumed, "film.npz"))
+        assert int(b["spp_done"]) == passes and all(
+            np.array_equal(a[k], b[k]) for k in a), \
+            "phase18: the resumed film differs from the straight one"
+    seconds = [r["seconds"] for r in records]
+    print("phase18", json.dumps({
+        "res": cfg.resolution[0], "spp": passes, "depth": cfg.max_depth,
+        "app_s": dt, "s_per_pass_median": statistics.median(seconds),
+        "s_per_pass_mean": sum(seconds) / passes,
+        "rays_per_s_median": statistics.median(
+            r["rays_per_sec"] for r in records),
+        "launches": launches, "image_mean": mean, "left_wall": left,
+        "right_wall": right, "progress_pngs": len(pngs),
+        "resumed_from": passes // 2, "resume_app_s": resume_s,
+        "resumed_film_bitwise": True,
+        "phase_s": time.perf_counter() - t_phase, "card": card}), flush=True)
+    return launches
+
+
+def shape_phase(dev, card, res=128):
+    """Phase 19 (see the module docstring)."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts()
+        t0 = time.perf_counter()
+        rep = st_app.main(os.path.join(tmp, "card"), res, dev)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        launches = read_counts()
+        t0 = time.perf_counter()
+        ref = st_app.main(os.path.join(tmp, "cpu"), res, "cpu")
+        cpu_s = time.perf_counter() - t0
+    assert torch.device(dev).type != "cuda" or min(
+        launches["octree_closest"], launches["brute_closest"]) > 0, \
+        f"phase19 launched {launches}"
+    assert rep["octree_matches_brute"] and ref["octree_matches_brute"]
+    errs = {}
+    rays = [st_app.camera_rays(res, x) for x in (dev, "cpu")]
+    for (name, scene), c_scene in zip(st_app.shape_scenes(dev).items(),
+                                      st_app.shape_scenes("cpu").values()):
+        assert rep[name]["hit_fraction"] == ref[name]["hit_fraction"], name
+        if name != "mesh_octree":
+            assert (rep[name]["triangle_tests_total"]
+                    == ref[name]["triangle_tests_total"]), name
+        got = [x.cpu() for x in st_app.shade(scene, *rays[0])[:3]]
+        want = st_app.shade(c_scene, *rays[1])[:3]
+        diff = torch.maximum((got[0] - want[0]).abs().amax(-1),
+                             (got[1] - want[1]).abs().amax(-1))
+        cos = ((2.0 * want[0] - 1.0) * rays[1][1]).sum(-1).abs()
+        both = got[2] & want[2]
+        keep = both & (cos >= GRAZING_COS)
+        errs[name] = {
+            "max_abs_diff": float(diff[keep].max()) if keep.any() else 0.0,
+            "grazing_left_out": int((both & ~keep).sum()),
+            "max_abs_diff_grazing": float(diff[both & ~keep].max())
+            if (both & ~keep).any() else None,
+            "hit_mask_mismatches": int((got[2] != want[2]).sum())}
+        assert errs[name]["max_abs_diff"] <= SHAPE_ATOL, \
+            f"phase19 {name}: {errs[name]}"
+    print("phase19", json.dumps({
+        "res": res, "hit_fraction": {k: v["hit_fraction"] for k, v in
+                                     rep.items() if isinstance(v, dict)},
+        "triangle_tests_total_card": {
+            k: v["triangle_tests_total"] for k, v in rep.items()
+            if isinstance(v, dict)},
+        "octree_tests_total_cpu": ref["mesh_octree"]["triangle_tests_total"],
+        "octree_speedup_tests_card": rep["octree_speedup_tests"],
+        "octree_speedup_tests_cpu": ref["octree_speedup_tests"],
+        "octree": rep["mesh_octree"]["octree"],
+        "normals_uv_vs_cpu": errs, "atol": SHAPE_ATOL,
+        "grazing_cos": GRAZING_COS,
+        "launches": launches, "app_s": dt, "cpu_app_s": cpu_s,
+        "phase_s": time.perf_counter() - t_phase, "card": card}), flush=True)
+    return launches
+
+
+def _equal_arrays(a, b):
+    return all((x is None and y is None) or (
+        x is not None and y is not None and x.dtype == y.dtype
+        and np.array_equal(x, y)) for x, y in zip(a, b))
+
+
+def scene_file_phase(dev, card, subdiv=7, dragon_tris=870_000, res=512,
+                     passes=4):
+    """Phase 20 (see the module docstring); the arguments cut it down for
+    the CPU tests."""
+    t_phase = time.perf_counter()
+    times = {}
+
+    def clock(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        times[key] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        obj, ply = os.path.join(tmp, "mesh.obj"), os.path.join(tmp, "d.ply")
+        v, f, _ = clock("icosphere_s",
+                        lambda: mesh_gen.displaced_icosphere(subdiv))
+        clock("save_obj_s", lambda: obj_loader.save_obj(obj, v, f))
+        nat = clock("load_obj_native_s", lambda: obj_loader.load_obj(obj))
+        py = clock("load_obj_python_s",
+                   lambda: obj_loader.load_obj(obj, native=False))
+        assert _equal_arrays(nat, py), "phase20: the OBJ loaders differ"
+        assert np.array_equal(nat[0][nat[1]], v[f]) and nat[2] is None, \
+            "phase20: the OBJ's triangles differ from the generator's"
+
+        dv, df, duv = clock("dragon_s",
+                            lambda: mesh_gen.dragon_stand_in(dragon_tris))
+        clock("save_ply_s", lambda: ply_loader.save_ply(ply, dv, df,
+                                                        uvs=duv))
+        nat = clock("load_ply_native_s", lambda: ply_loader.load_ply(ply))
+        py = clock("load_ply_python_s",
+                   lambda: ply_loader.load_ply(ply, native=False))
+        assert _equal_arrays(nat, py), "phase20: the PLY loaders differ"
+        assert _equal_arrays(nat, (dv, df, None, duv)), \
+            "phase20: the PLY differs from the generator's arrays"
+        obj_loader.MeshCache.clear()
+        cached = clock("mesh_cache_ply_s", lambda: obj_loader.MeshCache.load(
+            "dragon", ply, device=dev))
+        built = trimod.MeshData.build(dv, df, uvs=duv, device=dev)
+        assert all(torch.equal(getattr(cached, k), getattr(built, k))
+                   for k in ("positions", "normals", "uvs", "tangents",
+                             "bitangents", "indices")), \
+            "phase20: MeshCache's MeshData differs from MeshData.build's"
+        obj_loader.MeshCache.clear()
+        del cached, built, nat, py
+
+        spec = json.loads(json.dumps(SCENE_FILE_SPEC))
+        spec["render"]["resolution"] = [res, res]
+        spec["render"]["sampler"]["spp"] = passes
+        spec["shapes"] = [{"kind": "mesh_obj", "path": obj, "material": 0}]
+        path = os.path.join(tmp, "scene.json")
+        with open(path, "w") as fh:
+            json.dump(spec, fh)
+        with wrapped(octmod, "build_octree",
+                     after=lambda s: times.__setitem__("build_octree_s", s)):
+            scene, camera, cfg = clock(
+                "load_scene_file_s", lambda: cfgmod.load_scene_file(path, dev))
+    assert scene.packed_octree is not None
+    zero_counts()
+    film, sensor = clock("render_s", lambda: integ.render(scene, camera,
+                                                          cfg))
+    launches = read_counts()
+    assert torch.device(dev).type != "cuda" or min(
+        launches["octree_closest"], launches["octree_anyhit"],
+        launches["interp"]) > 0, f"phase20 launched {launches}"
+    mem = scene_mod.Scene.build(
+        spec["materials"], spec["lights"], use_octree=True, device=dev,
+        mesh=(trimod.MeshData.build(v, f, device=dev),
+              np.zeros(len(f), np.int64)))
+    ref, _ = integ.render(mem, camera, cfg)
+    got = film.rgb_sum / film.weight_sum[..., None].clamp(min=1e-12)
+    want = ref.rgb_sum / ref.weight_sum[..., None].clamp(min=1e-12)
+    atol = 2e-3 * max(float(want.max()), 1e-3)
+    err = float((got - want).abs().max())
+    img = film.resolve(sensor).cpu().numpy()
+    assert np.isfinite(img).all() and err <= atol, \
+        f"phase20: the file scene differs from the in-memory one: {err}"
+    print("phase20", json.dumps({
+        "triangles": len(f), "dragon_triangles": len(df), "res": res,
+        "passes": passes, "depth": cfg.max_depth, **times,
+        "s_per_pass": times["render_s"] / passes,
+        "octree": scene.octree.info(), "launches": launches,
+        "max_abs_diff_vs_in_memory": err, "atol": atol,
+        "bitwise_vs_in_memory": bool(
+            torch.equal(film.rgb_sum, ref.rgb_sum)
+            and torch.equal(film.weight_sum, ref.weight_sum)),
+        "image_mean": float(img.mean()),
+        "phase_s": time.perf_counter() - t_phase, "card": card}), flush=True)
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     # phase 0
@@ -1749,6 +2021,13 @@ def main():
     sharded_phase(dev, card, headline_film, headline_s_pass, train_s_step)
     options_card_phase(dev, card)
 
+    # phases 18-20: the apps and scenes as data, each with its launches
+    app_launches = {"18": raytracer_phase(dev, card),
+                    "19": shape_phase(dev, card),
+                    "20": scene_file_phase(dev, card)}
+    by_phase = lambda key: {"launches_by_phase": {
+        p: n[key] for p, n in app_launches.items() if n[key]}}
+
     # phase 13
     print("smoke", json.dumps({"seconds": time.perf_counter() - t_start}),
           flush=True)
@@ -1761,25 +2040,30 @@ def main():
     octree_src = "computational_ray_tracer_tpu/ops/pallas_octree.py:242"
     brute_src = "computational_ray_tracer_tpu/ops/pallas_intersect.py:72"
     print(json.dumps({"kernels": [
-        kernel("mesh_intersect", "mesh_intersect.cu", brute_src,
-               launches["closest"], cam_row,
-               max(r["max_abs_err"] for r in rows + cornell_rows)),
-        kernel("mesh_anyhit", "mesh_intersect.cu", brute_src,
-               launches["anyhit"], cornell_rows[1], 0.0)] + [
+        {**kernel("mesh_intersect", "mesh_intersect.cu", brute_src,
+                  launches["closest"], cam_row,
+                  max(r["max_abs_err"] for r in rows + cornell_rows)),
+         **by_phase("brute_closest")},
+        {**kernel("mesh_anyhit", "mesh_intersect.cu", brute_src,
+                  launches["anyhit"], cornell_rows[1], 0.0),
+         **by_phase("brute_anyhit")}] + [
             kernel(f"mesh_{r['case']}", "mesh_intersect.cu", brute_src,
                    r["launches"], r, r["max_abs_err"])
             for r in cornell_rows] + [
-        kernel("octree_closest", "octree_traverse.cu", octree_src,
-               m_launches[0], row_closest,
-               max(row_closest["t_abs_err_max"],
-                   row_closest["b_abs_err_max"])),
-        kernel("octree_anyhit", "octree_traverse.cu", octree_src,
-               m_launches[1], row_any, 0.0),
+        {**kernel("octree_closest", "octree_traverse.cu", octree_src,
+                  m_launches[0], row_closest,
+                  max(row_closest["t_abs_err_max"],
+                      row_closest["b_abs_err_max"])),
+         **by_phase("octree_closest")},
+        {**kernel("octree_anyhit", "octree_traverse.cu", octree_src,
+                  m_launches[1], row_any, 0.0),
+         **by_phase("octree_anyhit")},
         {**kernel("dense_interp", "dense_interp.cu",
                   "computational_ray_tracer_tpu/ops/pallas_interp.py:36",
                   f_launches["interp"], interp_rows[0],
                   max(r["max_abs_err"] for r in interp_rows)),
-         "library_ms": interp_rows[0]["library_ms"]}] + [
+         "library_ms": interp_rows[0]["library_ms"],
+         **by_phase("interp")}] + [
         {**kernel("dense_interp_backward" + ("" if r is backward_rows[-1]
                                              else "_" + r["case"]),
                   "dense_interp.cu", BACKWARD_REPLACES,

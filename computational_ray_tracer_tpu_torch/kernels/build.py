@@ -12,10 +12,10 @@ Flags: ``-gencode arch=compute_90a,code=sm_90a -O3 -std=c++17`` plus
 ``-fmad=false`` (the kernels also spell out their rounding with
 ``__fmul_rn``/``__fadd_rn``); no ``--use_fast_math``.
 
-The host code in ``csrc/host/*.cpp`` (the native octree builder) is built
-the same way by ``g++`` into ``build/libcrt_host.so`` at first use
-(:func:`load_host_library`); it needs no card. A failed compile of either
-library raises.
+The host code in ``csrc/host/*.cpp`` (the native octree builder and the
+OBJ and PLY loaders) is built the same way by ``g++`` into
+``build/libcrt_host.so`` at first use (:func:`load_host_library`); it needs
+no card. A failed compile of either library raises.
 """
 
 from __future__ import annotations
@@ -131,8 +131,8 @@ def build_host():
         return HOST_LIB_PATH
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the native octree builder needs "
-                           "a C++ compiler")
+        raise RuntimeError("g++ not found: the native octree builder and "
+                           "mesh loaders need a C++ compiler")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = HOST_LIB_PATH + f".tmp{os.getpid()}"
     out = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, *srcs],
@@ -187,6 +187,22 @@ class CrtOctree(ctypes.Structure):
     ]
 
 
+class CrtMesh(ctypes.Structure):
+    """The output of ``crt_load_obj`` / ``crt_load_ply``
+    (``csrc/host/mesh_loader.cpp``, ``ply_loader.cpp``); its buffers are
+    freed by ``crt_free_mesh``."""
+    _fields_ = [
+        ("n_verts", ctypes.c_int64),
+        ("n_tris", ctypes.c_int64),
+        ("has_normals", ctypes.c_int32),
+        ("has_uvs", ctypes.c_int32),
+        ("positions", ctypes.POINTER(ctypes.c_float)),
+        ("indices", ctypes.POINTER(ctypes.c_int32)),
+        ("uvs", ctypes.POINTER(ctypes.c_float)),
+        ("normals", ctypes.POINTER(ctypes.c_float)),
+    ]
+
+
 def load_host_library():
     """The loaded host library (built first if needed), with argtypes."""
     global _HOST_LIB
@@ -200,6 +216,12 @@ def load_host_library():
         lib.crt_build_octree.restype = ctypes.c_int
         lib.crt_free_octree.argtypes = [ctypes.POINTER(CrtOctree)]
         lib.crt_free_octree.restype = None
+        for name in ("crt_load_obj", "crt_load_ply"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_char_p, ctypes.POINTER(CrtMesh)]
+            fn.restype = ctypes.c_int
+        lib.crt_free_mesh.argtypes = [ctypes.POINTER(CrtMesh)]
+        lib.crt_free_mesh.restype = None
         _HOST_LIB = lib
     return _HOST_LIB
 

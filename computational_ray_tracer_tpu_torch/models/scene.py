@@ -152,12 +152,16 @@ def _packet_order(o, d, alive):
     return torch.argsort(key, stable=True)
 
 
-def _mesh_closest_hit(scene, o, d, t_best):
+def _mesh_closest_hit(scene, o, d, t_best, stats=False):
+    """(t, tri_idx, b1, b2), then, with ``stats``, the triangle tests of
+    each ray: the octree kernel's ``tests`` counter (the plain traversal's
+    on the CPU), or F for the brute force, as the reference counts them."""
     if scene.packed_octree is not None:
-        return okern.octree_intersect(o, d, t_best, scene.packed_octree)
+        return okern.octree_intersect(o, d, t_best, scene.packed_octree,
+                                      stats=stats)[:5 if stats else 4]
     return mik.mesh_intersect(o.contiguous(), d.contiguous(),
                               t_best.contiguous(), scene.mesh,
-                              scene.tri_mask)[:4]
+                              scene.tri_mask)[:5 if stats else 4]
 
 
 def _analytic(scene: Scene):
@@ -172,14 +176,16 @@ def _analytic(scene: Scene):
     return [k for k in kinds if k[1] is not None]
 
 
-def scene_intersect_t(scene: Scene, o, d, t_max):
-    """Hit-distance phase: (t_best, type_best, idx_best, b1, b2)."""
+def scene_intersect_t(scene: Scene, o, d, t_max, stats=False):
+    """Hit-distance phase: (t_best, type_best, idx_best, b1, b2), then,
+    with ``stats``, the triangle tests of each ray (int32)."""
     batch = o.shape[:-1]
     t_best = t_max
     type_best = torch.zeros(batch, dtype=torch.int64, device=o.device)
     idx_best = torch.zeros(batch, dtype=torch.int64, device=o.device)
     b1 = torch.zeros(batch, device=o.device)
     b2 = torch.zeros(batch, device=o.device)
+    tri_tests = None
     for tag, table, intersect_t, _, _ in _analytic(scene):
         t_all = intersect_t(o, d, t_best, table)
         j = torch.argmin(t_all, dim=-1)                # first of equal mins
@@ -189,14 +195,22 @@ def scene_intersect_t(scene: Scene, o, d, t_max):
         type_best = torch.where(better, tag, type_best)
         idx_best = torch.where(better, j, idx_best)
     if scene.mesh is not None:
-        tm, ti, mb1, mb2 = _mesh_closest_hit(scene, o, d, t_best)
+        tm, ti, mb1, mb2, *tests = _mesh_closest_hit(scene, o, d, t_best,
+                                                     stats)
+        if stats:
+            tri_tests = tests[0].to(torch.int32)
         better = tm < t_best
         t_best = torch.where(better, tm, t_best)
         type_best = torch.where(better, TYPE_MESH, type_best)
         idx_best = torch.where(better, ti.to(torch.int64), idx_best)
         b1 = torch.where(better, mb1, b1)
         b2 = torch.where(better, mb2, b2)
-    return t_best, type_best, idx_best, b1, b2
+    out = (t_best, type_best, idx_best, b1, b2)
+    if not stats:
+        return out
+    if tri_tests is None:
+        tri_tests = torch.zeros(batch, dtype=torch.int32, device=o.device)
+    return out + (tri_tests,)
 
 
 def _merge(si, new, mask):
@@ -240,9 +254,13 @@ def scene_surface(scene: Scene, o, d, hit):
     return si, mat_id
 
 
-def scene_intersect(scene: Scene, o, d, t_max):
-    """Closest hit across all shape types: (SurfaceInfo, material id)."""
-    return scene_surface(scene, o, d, scene_intersect_t(scene, o, d, t_max))
+def scene_intersect(scene: Scene, o, d, t_max, stats=False):
+    """Closest hit across all shape types: (SurfaceInfo, material id), then,
+    with ``stats``, the triangle tests of each ray, as the reference's
+    third output."""
+    hit = scene_intersect_t(scene, o, d, t_max, stats)
+    si, mat_id = scene_surface(scene, o, d, hit[:5])
+    return (si, mat_id, hit[5]) if stats else (si, mat_id)
 
 
 def scene_anyhit(scene: Scene, o, d, t_max):

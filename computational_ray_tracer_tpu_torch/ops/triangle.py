@@ -39,13 +39,27 @@ class MeshData:
                        np.asarray(indices, np.int64), device=device))
 
     @classmethod
-    def build(cls, positions, indices, normals=None, uvs=None, device="cpu"):
+    def build(cls, positions, indices, normals=None, uvs=None, device="cpu",
+              transform=None):
         """Host-side constructor with the reference's attribute defaults:
-        area-weighted vertex normals, zero uvs, an arbitrary tangent frame."""
+        area-weighted vertex normals, zero uvs, an arbitrary tangent frame;
+        ``transform`` (``shapes.make_transform``'s (m, m_inv)) moves the
+        positions and given normals to world space first."""
         pos = np.asarray(positions, np.float32).reshape(-1, 3)
         idx = np.asarray(indices, np.int32).reshape(-1, 3)
-        normals = (_vertex_normals(pos, idx) if normals is None
-                   else np.asarray(normals, np.float32).reshape(-1, 3))
+        if transform is not None:
+            m = np.asarray(transform[0], np.float32)
+            ph = np.concatenate([pos, np.ones_like(pos[:, :1])], axis=1)
+            pos = (ph @ m.T)[:, :3]
+        if normals is None:
+            normals = _vertex_normals(pos, idx)
+        else:
+            normals = np.asarray(normals, np.float32).reshape(-1, 3)
+            if transform is not None:
+                normals = normals @ np.asarray(transform[1],
+                                               np.float32)[:3, :3]
+                nl = np.linalg.norm(normals, axis=1, keepdims=True)
+                normals = normals / np.maximum(nl, 1e-12)
         uvs = (np.zeros((pos.shape[0], 2), np.float32) if uvs is None
                else np.asarray(uvs, np.float32).reshape(-1, 2))
         tangents = _default_frame(normals)

@@ -1,14 +1,18 @@
 """Procedural meshes (``computational_ray_tracer_tpu/utils/mesh_gen.py``),
-in numpy: the Cornell box, spheres, the displaced-icosphere and
+in numpy: the Cornell box, boxes, spheres, the displaced-icosphere and
 dragon-stand-in test meshes, and the checker texture. Every generator gives
-arrays bit-identical to the reference's; nothing is cached on disk (the
-327,680-triangle mesh takes a few seconds to generate)."""
+arrays bit-identical to the reference's. The two large test meshes are
+cached on disk (``utils/asset_cache.py``) as the reference caches them."""
 
 from __future__ import annotations
 
 import math
 
 import numpy as np
+
+from computational_ray_tracer_tpu_torch.utils import asset_cache
+
+_MESH_ARRAYS = ("verts", "faces", "uvs")
 
 
 def quad(corner, edge1, edge2, flip=False):
@@ -40,6 +44,26 @@ def merge_meshes(parts):
         base += len(pos)
     return (np.concatenate(pos_all), np.concatenate(idx_all),
             np.concatenate(uv_all), np.concatenate(mat_all))
+
+
+def box(lo, hi, flip=False):
+    """12-triangle axis-aligned box with outward winding normals (inward if
+    ``flip``): (positions, indices, uvs)."""
+    lo = np.asarray(lo, np.float32)
+    hi = np.asarray(hi, np.float32)
+    d = hi - lo
+    ex = np.asarray([d[0], 0, 0], np.float32)
+    ey = np.asarray([0, d[1], 0], np.float32)
+    ez = np.asarray([0, 0, d[2]], np.float32)
+    faces = [
+        quad(lo, ez, ey, flip=flip),            # -x
+        quad(lo + ex, ey, ez, flip=flip),       # +x
+        quad(lo, ex, ez, flip=flip),            # -y
+        quad(lo + ey, ez, ex, flip=flip),       # +y
+        quad(lo, ey, ex, flip=flip),            # -z
+        quad(lo + ez, ex, ey, flip=flip),       # +z
+    ]
+    return merge_meshes(faces)[:3]
 
 
 def cornell_box(size=2.0, light_frac=0.5):
@@ -138,7 +162,16 @@ def icosphere(subdiv=3, radius=1.0, center=(0.0, 0.0, 0.0)):
 def displaced_icosphere(subdiv=7, radius=1.0, center=(0.0, 0.0, 0.0),
                         amplitude=0.15, seed=7):
     """The 327k-class test mesh: an icosphere with four octaves of
-    sinusoidal radial displacement (non-uniform triangle density)."""
+    sinusoidal radial displacement (non-uniform triangle density); read
+    from the asset cache, or generated and stored there."""
+    key = (f"displaced_icosphere_v1_s{subdiv}_r{radius}_c{center[0]}_"
+           f"{center[1]}_{center[2]}_a{amplitude}_seed{seed}")
+    return asset_cache.cached(
+        key, lambda: _displaced_icosphere(subdiv, radius, center, amplitude,
+                                          seed), _MESH_ARRAYS)
+
+
+def _displaced_icosphere(subdiv, radius, center, amplitude, seed):
     verts, faces, uvs = icosphere(subdiv, 1.0, (0.0, 0.0, 0.0))
     rng_ = np.random.RandomState(seed)
     disp = np.zeros(verts.shape[0])
@@ -160,7 +193,13 @@ def dragon_stand_in(target_tris=870_000, scale=15.0, seed=11):
     helical chain of beads whose radii span ~30x and whose subdivision
     levels differ, so triangle areas vary by orders of magnitude and the
     density follows a curve. (positions, faces, uvs), deterministic in the
-    arguments."""
+    arguments; read from the asset cache, or generated and stored there."""
+    key = f"dragon_stand_in_v1_t{target_tris}_s{scale}_seed{seed}"
+    return asset_cache.cached(
+        key, lambda: _dragon_stand_in(target_tris, scale, seed), _MESH_ARRAYS)
+
+
+def _dragon_stand_in(target_tris, scale, seed):
     rng_ = np.random.RandomState(seed)
     base = {s: icosphere(s, 1.0, (0.0, 0.0, 0.0)) for s in (2, 3, 4, 5)}
 

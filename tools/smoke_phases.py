@@ -1,17 +1,22 @@
-"""``chip_smoke.py``'s sharded and option phases (16 and 17) alone, after
-the Cornell headline render of its phase 4 that phase 16 is held to.
+"""Some of ``chip_smoke.py``'s later phases alone, after the Cornell
+headline render of its phase 4 that phase 16 is held to.
 
-    python tools/smoke_phases.py
+    python tools/smoke_phases.py [PHASE ...]
 
-Builds the kernels, renders the Cornell headline (512x512, spp 32,
-path/MIS depth 4) through ``render()`` after one warm-up pass, then runs
-``chip_smoke.sharded_phase`` (16: ``render_distributed`` at world size 1
-over NCCL, two spawned ranks on the card over gloo, config 5's sharded
-train step) and ``chip_smoke.options_card_phase`` (17: the sobol_global
-headline and the 128x128 option and camera passes against the CPU), each
-printing its lines as in the smoke; then one line of each part's seconds.
-Phase 16's config 5 line carries no 14b time (14b does not run here).
-Needs a CUDA card; imports nothing of JAX.
+PHASE is any of 16, 17, 18, 19, 20 (default: 16 17). Builds the kernels,
+renders the Cornell headline (512x512, spp 32, path/MIS depth 4) through
+``render()`` after one warm-up pass, then runs the phases asked for, each
+printing its lines as in the smoke: ``chip_smoke.sharded_phase`` (16:
+``render_distributed`` at world size 1 over NCCL, two spawned ranks on the
+card over gloo, config 5's sharded train step),
+``chip_smoke.options_card_phase`` (17: the sobol_global headline and the
+128x128 option and camera passes against the CPU),
+``chip_smoke.raytracer_phase`` (18: the raytracer app, its resume),
+``chip_smoke.shape_phase`` (19: the shape_test app on the card and the CPU)
+and ``chip_smoke.scene_file_phase`` (20: the OBJ/PLY loaders and a JSON
+scene file); then one line of each phase's seconds. Phase 16's config 5
+line carries no 14b time (14b does not run here). Needs a CUDA card;
+imports nothing of JAX.
 """
 
 import os
@@ -50,14 +55,20 @@ def main():
     ref = filmmod.Film(film.rgb_sum.cpu(), film.weight_sum.cpu(),
                        film.spp_done)
     del scene, film
-    t1 = time.perf_counter()
-    cs.sharded_phase(dev, card, ref, s_pass, None)
-    t2 = time.perf_counter()
-    cs.options_card_phase(dev, card)
-    t3 = time.perf_counter()
-    print("seconds", {"render_s_per_pass": s_pass, "phase16": t2 - t1,
-                      "phase17": t3 - t2, "total": t3 - t_start},
-          flush=True)
+    phases = {
+        "16": lambda: cs.sharded_phase(dev, card, ref, s_pass, None),
+        "17": lambda: cs.options_card_phase(dev, card),
+        "18": lambda: cs.raytracer_phase(dev, card),
+        "19": lambda: cs.shape_phase(dev, card),
+        "20": lambda: cs.scene_file_phase(dev, card),
+    }
+    seconds = {"render_s_per_pass": s_pass}
+    for name in sys.argv[1:] or ["16", "17"]:
+        t0 = time.perf_counter()
+        phases[name]()
+        seconds["phase" + name] = time.perf_counter() - t0
+    seconds["total"] = time.perf_counter() - t_start
+    print("seconds", seconds, flush=True)
 
 
 if __name__ == "__main__":
