@@ -148,11 +148,29 @@ failed check raises, so the script exits non-zero:
    interpolation kernel launched, against the same mesh built in memory
    (2e-3*max; bitwise equality reported); load, octree-build and pass
    times;
-13. (printed after 20) a JSON line of the kernels, with a row for each
+21. the eight validation apps (spectrum_color, filter_film_test,
+   sampler_test, montecarlo_test, polygon_app, crossbridge, ode_app,
+   plotter_demo) at their defaults on the card, each into a temporary
+   directory, then on the CPU: every deterministic report entry of the card
+   held to the CPU's (the known colour answers, the filter integrals, the
+   sensor swatches, the ODE errors and the orders they bound, the
+   triangulation, ears and coverage, the crossbridge attachment counts
+   exactly), each solver's 128-step ODE trajectory at rtol 1e-5 / atol
+   1e-6, every statistical
+   entry of each side to its own bound (the Monte Carlo estimates within
+   their Chebyshev bounds, each filter's mean weight within 3 sigma of its
+   integral, the crossbridge steady state within 3 sigma of f/(f+g)), the
+   deterministic plots' data equal, every PNG decoded through
+   utils/image.py with its JSON sidecar; the interpolation kernel must
+   launch (the sensor swatches of filter_film_test: a (471, 3) sensor
+   table at 256 x 8 wavelengths), and each of its card launches is then
+   held bitwise to the plain version on the very tensors it took; each
+   app's card and CPU seconds;
+13. (printed after 21) a JSON line of the kernels, with a row for each
    brute-force mode, each launch of 4b, each launch of 10b and 12b, the
    interpolation kernel and each case of its backward (9b); the rows of
    both brute-force modes, both octree modes and the interpolation
-   kernel also carry their launches in phases 18-20 (launches_by_phase)
+   kernel also carry their launches in phases 18-21 (launches_by_phase)
    (CUDA-event medians: of 5 for
    the kernels, of 3 for the plain versions and the brute kernel at full
    mesh size, one run of the plain traversal in 10b and 12b; the brute
@@ -165,7 +183,9 @@ failed check raises, so the script exits non-zero:
 
 import contextlib
 import dataclasses
+import importlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -178,6 +198,7 @@ import torch
 import torch.nn.functional as F
 
 from computational_ray_tracer_tpu_torch import convert, entry
+from computational_ray_tracer_tpu_torch.apps import filter_film_test
 from computational_ray_tracer_tpu_torch.apps import raytracer as rt_app
 from computational_ray_tracer_tpu_torch.apps import shape_test as st_app
 from computational_ray_tracer_tpu_torch.kernels import build
@@ -277,6 +298,24 @@ SCENE_FILE_SPEC = {
                {"kind": "ambient", "spd_named": "stdillum-D65",
                 "scale": 0.15}],
 }
+
+# 21: the validation apps, card against CPU. Entries the apps round to 4
+# decimals may round 1e-4 apart from values within APP_ATOL.
+VALIDATION_APPS = ("spectrum_color", "filter_film_test", "sampler_test",
+                   "montecarlo_test", "polygon_app", "crossbridge", "ode_app",
+                   "plotter_demo")
+APP_RTOL, APP_ATOL = 1e-5, 1e-6
+ROUNDED_ATOL = 1e-4 + 1e-6
+# the plots whose data are the same on every device (no random draws)
+DETERMINISTIC_PLOTS = {
+    "sampler_test": ("points_independent.png", "points_stratified.png",
+                     "points_sobol_owen.png"),
+    "plotter_demo": ("plotter_demo.png",),
+    "polygon_app": ("polygon.png",),
+}
+# the plots whose series are held at APP_RTOL / APP_ATOL between devices
+# (the ODE trajectories: float32 steps whose sin may differ by an ulp)
+CLOSE_PLOTS = {"ode_app": ("ode.png",)}
 
 
 def card_line():
@@ -1822,6 +1861,212 @@ def scene_file_phase(dev, card, subdiv=7, dragon_tris=870_000, res=512,
     return launches
 
 
+def _close(got, want, rtol, atol, what):
+    """max |got - want|, after holding it to atol + rtol |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape and np.all(
+        np.abs(got - want) <= atol + rtol * np.abs(want)), \
+        f"{what}: {got.tolist()} vs {want.tolist()}"
+    return float(np.abs(got - want).max()) if got.size else 0.0
+
+
+def _keys(report, prefix=""):
+    if not isinstance(report, dict):
+        return [prefix]
+    return sorted(k for key, v in report.items()
+                  for k in _keys(v, f"{prefix}{key}."))
+
+
+def app_report_diffs(name, got, want):
+    """The deterministic entries of app ``name``'s report ``got`` held to
+    ``want`` (another device's run, or the reference app's): {entry: max
+    |diff|}. The reports must have the same keys."""
+    if not isinstance(want, dict):
+        return {}
+    assert _keys(got) == _keys(want), f"{name}: {_keys(got)} vs {_keys(want)}"
+    d = {}
+
+    def hold(key, g, w, rtol, atol):
+        d[key] = _close(g, w, rtol, atol, f"{name} {key}")
+
+    if name == "spectrum_color":
+        for k in ("d65_expected", "expected_whitepoint_Y"):
+            hold(k, got[k], want[k], 0, 0)
+        for k in ("d65_chromaticity", "srgb_white_to_xyz", "srgb_to_p3"):
+            hold(k, got[k], want[k], 0, ROUNDED_ATOL)
+        hold("p3_round_trip_err", got["p3_round_trip_err"],
+             want["p3_round_trip_err"], 0, APP_ATOL)
+    elif name == "filter_film_test":
+        for k, v in got.items():
+            if k.startswith("sensor_"):
+                for s in ("white_swatch", "red_swatch"):
+                    hold(f"{k}.{s}", v[s], want[k][s], 0, ROUNDED_ATOL)
+            else:
+                hold(f"{k}.integral", v["integral"], want[k]["integral"],
+                     APP_RTOL, APP_ATOL)
+    elif name == "montecarlo_test":
+        hold("analytic", got["analytic"], want["analytic"], 0, 0)
+    elif name in ("polygon_app", "crossbridge"):
+        for k in got:
+            tol = (APP_RTOL, APP_ATOL) if k == "mean_force_tail" else (0, 0)
+            hold(k, got[k], want[k], *tol)
+    elif name == "ode_app":
+        for k, v in got.items():
+            e = np.asarray(want[k]["errors"])
+            hold(f"{k}.errors", v["errors"], e, APP_RTOL, APP_ATOL)
+            # the order log2(e0/e1) within what the errors' tolerance
+            # allows (in float32 RK4's errors are rounding noise)
+            de = APP_ATOL + APP_RTOL * e[:2]
+            if np.all(de < e[:2]):
+                hold(f"{k}.order", v["order"], want[k]["order"], 0,
+                     float(np.sum(de / (e[:2] - de))) / math.log(2.0))
+            else:
+                # the errors are within their own tolerance of 0 (RK4's
+                # are float32 rounding), so they bound no order: printed,
+                # not held (phase 21 holds the trajectories instead)
+                d[f"{k}.order_not_held"] = abs(v["order"] - want[k]["order"])
+    return d
+
+
+def app_report_bounds(name, report, n_samples=None, device="cpu"):
+    """Each statistical entry of app ``name``'s report within its own
+    bound; ``n_samples`` is filter_film_test's n. Returns {entry:
+    (deviation, bound)}."""
+    out = {}
+
+    def within(key, dev, bnd):
+        out[key] = (float(dev), float(bnd))
+        assert abs(dev) <= bnd, f"{name} {key}: |{dev}| > {bnd}"
+
+    if name == "montecarlo_test":
+        a = report["analytic"]
+        u, imp = report["uniform"], report["importance_linear"]
+        within("uniform", u["estimate"] - a, u["chebyshev_95"])
+        within("importance_linear", imp["estimate"] - a,
+               math.sqrt(imp["variance"] / 0.05))
+    elif name == "filter_film_test":
+        for k in filter_film_test.FILTER_NAMES:
+            w = filter_film_test.filter_samples(k, n_samples, device)[1]
+            sigma = float(w.double().std()) / math.sqrt(w.numel())
+            r = report[k]
+            within(k, r["mc_integral"] - r["integral"],
+                   3.0 * sigma + APP_RTOL * abs(r["integral"]))
+    elif name == "crossbridge":
+        p = report["steady_state_fraction"]
+        within("simulated_final_fraction",
+               report["simulated_final_fraction"] - p,
+               3.0 * math.sqrt(p * (1 - p) / report["n_bridges"]))
+    return out
+
+
+def app_plots(outdir):
+    """{png name: sidecar} of an app's output directory, each PNG decoded
+    through utils/image.py to its sidecar's size."""
+    out = {}
+    for f in sorted(os.listdir(outdir)):
+        if f.endswith(".png"):
+            with open(os.path.join(outdir, f), "rb") as fh:
+                img = image.decode_png(fh.read())
+            with open(os.path.join(outdir, f + ".json")) as fh:
+                out[f] = json.load(fh)
+            assert list(img.shape) == out[f]["size"][::-1] + [3], f
+    return out
+
+
+def plot_series_diffs(name, png, got, want):
+    """Each series of the sidecar ``got`` held to ``want``'s (same kind and
+    label, x and y at APP_RTOL / APP_ATOL): {png.label: max |diff|}."""
+    gs, ws = got["series"], want["series"]
+    assert [(s["kind"], s["label"]) for s in gs] == \
+        [(s["kind"], s["label"]) for s in ws], f"{name} {png}"
+    return {f"{png}.{g['label']}": max(
+        _close(g[k], w[k], APP_RTOL, APP_ATOL, f"{name} {png} {k}")
+        for k in ("x", "y")) for g, w in zip(gs, ws)}
+
+
+def interp_launch_checks(calls):
+    """The interpolation kernel against its plain version on the very
+    (tables, i0, w) of each recorded launch, bitwise as phase 9 holds it
+    (these comparison launches are made after the counts are read)."""
+    err, peak, shapes = 0.0, 0.0, set()
+    for tables, i0, w in calls:
+        out = ik.dense_interp(tables, i0, w)
+        plain = ik.dense_interp_plain(tables, i0, w)
+        e = (out - plain).abs().max().item()
+        assert torch.equal(out, plain), \
+            f"phase21: the interpolation kernel differs by {e}"
+        err, peak = max(err, e), max(peak, plain.abs().max().item())
+        shapes.add((*tables.shape, i0.shape[0]))
+    return {"calls": len(calls), "bitwise": True,
+            "k_c_rows": [list(s) for s in sorted(shapes)],
+            "max_abs_err": err, "max_abs_value": peak}
+
+
+def apps_phase(dev, card, sizes=None):
+    """Phase 21 (see the module docstring); ``sizes`` ({app: keyword
+    arguments}) cuts the apps down for the CPU tests (None: defaults)."""
+    sizes = sizes or {}
+    t_phase = time.perf_counter()
+    seconds, reports, plots, interp_calls = {}, {}, {}, []
+
+    def keep(tables, i0, w):
+        interp_calls.append((tables.clone(), i0.clone(), w.clone()))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for side, device in (("card", dev), ("cpu", "cpu")):
+            if side == "card":
+                zero_counts()
+            with (wrapped(ik, "dense_interp", before=keep) if side == "card"
+                  else contextlib.nullcontext()):
+                for name in VALIDATION_APPS:
+                    mod = importlib.import_module(
+                        f"computational_ray_tracer_tpu_torch.apps.{name}")
+                    out = os.path.join(tmp, side, name)
+                    t0 = time.perf_counter()
+                    reports[side, name] = mod.main(out, device=device,
+                                                   **sizes.get(name, {}))
+                    sync(device)
+                    seconds[f"{name}_{side}_s"] = time.perf_counter() - t0
+                    plots[side, name] = app_plots(out)
+            if side == "card":
+                launches = read_counts()
+    assert torch.device(dev).type != "cuda" or (
+        launches["interp"] > 0 and len(interp_calls) == launches["interp"]), \
+        f"phase21 launched {launches}, recorded {len(interp_calls)}"
+    interp_check = interp_launch_checks(interp_calls)
+    n_filter = sizes.get("filter_film_test", {}).get("n", 60_000)
+    diffs, bounds = {}, {}
+    for name in VALIDATION_APPS:
+        card_plots, cpu_plots = plots["card", name], plots["cpu", name]
+        assert sorted(card_plots) == sorted(cpu_plots), name
+        for png in DETERMINISTIC_PLOTS.get(name, ()):
+            assert card_plots[png] == cpu_plots[png], f"{name} {png}"
+        diffs[name] = app_report_diffs(name, reports["card", name],
+                                       reports["cpu", name])
+        for png in CLOSE_PLOTS.get(name, ()):
+            diffs[name].update(plot_series_diffs(name, png, card_plots[png],
+                                                 cpu_plots[png]))
+        for side, device in (("card", dev), ("cpu", "cpu")):
+            b = app_report_bounds(name, reports[side, name], n_filter, device)
+            if b:
+                bounds[f"{name}_{side}"] = b
+    # the attachment counts, step by step
+    attach = [plots[side, "crossbridge"]["crossbridge_attach.png"]
+              ["series"][0]["y"] for side in ("card", "cpu")]
+    assert attach[0] == attach[1], "phase21: the attachment counts differ"
+    print("phase21", json.dumps({
+        "apps": list(VALIDATION_APPS), "sizes": sizes or "defaults",
+        "seconds": seconds, "launches": launches,
+        "interp_launches": launches["interp"],
+        "interp_held_to_plain": interp_check,
+        "card_vs_cpu_abs_diff": {k: v for k, v in diffs.items() if v},
+        "statistical": bounds, "crossbridge_steps": len(attach[0]),
+        "pngs_a_side": sum(len(plots["card", n]) for n in VALIDATION_APPS),
+        "phase_s": time.perf_counter() - t_phase, "card": card}),
+        flush=True)
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     # phase 0
@@ -2021,10 +2266,11 @@ def main():
     sharded_phase(dev, card, headline_film, headline_s_pass, train_s_step)
     options_card_phase(dev, card)
 
-    # phases 18-20: the apps and scenes as data, each with its launches
+    # phases 18-21: the apps and scenes as data, each with its launches
     app_launches = {"18": raytracer_phase(dev, card),
                     "19": shape_phase(dev, card),
-                    "20": scene_file_phase(dev, card)}
+                    "20": scene_file_phase(dev, card),
+                    "21": apps_phase(dev, card)}
     by_phase = lambda key: {"launches_by_phase": {
         p: n[key] for p, n in app_launches.items() if n[key]}}
 

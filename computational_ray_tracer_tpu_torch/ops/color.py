@@ -1,6 +1,7 @@
-"""Colour science for the slice (``computational_ray_tracer_tpu/ops/
-color.py``): the sRGB colour space, sigmoid-polynomial spectra and the
-RGB -> sigmoid-coefficient fit, and the reference's precomputed sRGB
+"""Colour science (``computational_ray_tracer_tpu/ops/color.py``):
+chromaticity, the sRGB, DCI-P3, Rec. 2020 and ACES2065-1 colour spaces,
+Bradford white balance, the sRGB transfer functions, sigmoid-polynomial
+spectra and the RGB -> sigmoid-coefficient fit, and the precomputed sRGB
 coefficient table for textures.
 
 The fit is scene-build work on the host: a batched Levenberg-Marquardt solve
@@ -20,6 +21,28 @@ import torch
 
 from computational_ray_tracer_tpu_torch.ops import spectra_data as data
 from computational_ray_tracer_tpu_torch.ops import spectrum as spec
+
+
+def xyY_to_xyz(xy, Y=1.0):
+    """XYZ from chromaticity xy (..., 2) and luminance Y; 0 where y = 0."""
+    x, y = xy[..., 0], xy[..., 1]
+    Y = torch.as_tensor(Y, dtype=xy.dtype, device=xy.device)
+    safe = y != 0.0
+    ys = torch.where(safe, y, torch.ones_like(y))
+    zero = torch.zeros_like(x)
+    return torch.stack([torch.where(safe, x * Y / ys, zero),
+                        torch.where(safe, Y, zero),
+                        torch.where(safe, (1.0 - x - y) * Y / ys, zero)], -1)
+
+
+def xyz_chromaticity(xyz):
+    """(x, y) of XYZ (..., 3)."""
+    return xyz[..., :2] / torch.sum(xyz, dim=-1, keepdim=True)
+
+
+def _apply(m, v):
+    """The 3x3 float64 host matrix m applied to v (..., 3) in float32."""
+    return v @ torch.as_tensor(m, dtype=torch.float32, device=v.device).T
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,14 +66,50 @@ class RGBColorSpace:
                    np.asarray(illuminant, dtype=np.float32))
 
     def to_rgb(self, xyz):
-        m = torch.as_tensor(self.rgb_from_xyz, dtype=torch.float32,
-                            device=xyz.device)
-        return xyz @ m.T
+        return _apply(self.rgb_from_xyz, xyz)
+
+    def to_xyz(self, rgb):
+        return _apply(self.xyz_from_rgb, rgb)
 
 
 SRGB = RGBColorSpace.create(
     "sRGB", (0.64, 0.33), (0.30, 0.60), (0.15, 0.06), (0.3127, 0.3290),
     data.ILLUM_D65)
+DCI_P3 = RGBColorSpace.create(
+    "DCI-P3", (0.680, 0.320), (0.265, 0.690), (0.150, 0.060), (0.314, 0.351),
+    data.ILLUM_D65)
+REC_2020 = RGBColorSpace.create(
+    "Rec2020", (0.708, 0.292), (0.170, 0.797), (0.131, 0.046),
+    (0.3127, 0.3290), data.ILLUM_D65)
+ACES2065_1 = RGBColorSpace.create(
+    "ACES2065-1", (0.7347, 0.2653), (0.0, 1.0), (0.0001, -0.077),
+    (0.32168, 0.33767), data.ILLUM_D60)
+
+COLOR_SPACES = {cs.name: cs for cs in (SRGB, DCI_P3, REC_2020, ACES2065_1)}
+
+
+def convert_rgb_colorspace(rgb, src: RGBColorSpace, dst: RGBColorSpace):
+    """RGB (..., 3) of colour space src in colour space dst."""
+    return _apply(dst.rgb_from_xyz @ src.xyz_from_rgb, rgb)
+
+
+# Bradford cone response, XYZ -> LMS.
+_LMS_FROM_XYZ = np.array([
+    [0.8951, 0.2664, -0.1614],
+    [-0.7502, 1.7135, 0.0367],
+    [0.0389, -0.0685, 1.0296]], dtype=np.float64)
+_XYZ_FROM_LMS = np.linalg.inv(_LMS_FROM_XYZ)
+
+
+def white_balance_matrix(src_xy, dst_xy):
+    """3x3 XYZ -> XYZ Bradford adaptation from whitepoint src to dst (the
+    whitepoints' XYZ in float32, as the reference takes them)."""
+    src, dst = (xyY_to_xyz(torch.tensor(xy, dtype=torch.float32)).numpy()
+                for xy in (src_xy, dst_xy))
+    lms_s = _LMS_FROM_XYZ @ src
+    lms_d = _LMS_FROM_XYZ @ dst
+    return (_XYZ_FROM_LMS @ np.diag(lms_d / lms_s) @ _LMS_FROM_XYZ).astype(
+        np.float32)
 
 
 def linear_to_srgb(c):
@@ -58,6 +117,11 @@ def linear_to_srgb(c):
     return torch.where(c <= 0.0031308, 12.92 * c,
                        1.055 * torch.pow(torch.clamp(c, min=1e-7), 1.0 / 2.4)
                        - 0.055)
+
+
+def srgb_to_linear(c):
+    return torch.where(c <= 0.04045, c / 12.92,
+                       torch.pow((c + 0.055) / 1.055, 2.4))
 
 
 def _sigmoid(x):
@@ -90,6 +154,29 @@ class RGBAlbedoSpectrum:
         return sigmoid_polynomial(self.coeffs, lam)
 
 
+def _scaled_fit(rgb, colorspace):
+    """(coefficients, scale) of RGB (..., 3) outside [0, 1]: the fit of
+    rgb / (2 max(rgb)) and the scale 2 max(rgb)."""
+    rgb = torch.as_tensor(np.asarray(rgb, np.float32))
+    scale = 2.0 * torch.clamp(torch.max(rgb, dim=-1).values, min=1e-6)
+    return fit_rgb_to_spectrum(rgb / scale[..., None], colorspace), scale
+
+
+@dataclasses.dataclass
+class RGBUnboundedSpectrum:
+    """Scaled sigmoid spectrum for RGB outside [0, 1]."""
+    coeffs: torch.Tensor
+    scale: torch.Tensor
+
+    @classmethod
+    def from_rgb(cls, rgb, colorspace=SRGB):
+        return cls(*_scaled_fit(rgb, colorspace))
+
+    def __call__(self, lam):
+        s = self.scale[..., None] if self.scale.ndim else self.scale
+        return s * sigmoid_polynomial(self.coeffs, lam)
+
+
 @dataclasses.dataclass
 class RGBIlluminantSpectrum:
     """Illuminant-shaped emission for an RGB colour: a scaled reflectance
@@ -100,9 +187,7 @@ class RGBIlluminantSpectrum:
 
     @classmethod
     def from_rgb(cls, rgb, colorspace=SRGB):
-        rgb = torch.as_tensor(np.asarray(rgb, np.float32))
-        scale = 2.0 * torch.clamp(torch.max(rgb, dim=-1).values, min=1e-6)
-        coeffs = fit_rgb_to_spectrum(rgb / scale[..., None])
+        coeffs, scale = _scaled_fit(rgb, colorspace)
         return cls(coeffs, scale, torch.as_tensor(colorspace.illuminant))
 
     def __call__(self, lam):
@@ -174,9 +259,22 @@ class RGBToSpectrumTable:
     coeffs: torch.Tensor  # (res, res, res, 3)
 
     @classmethod
+    def generate(cls, res=32, colorspace=SRGB, cache_path=None):
+        """Fit a res^3 grid of RGB cell centres, or load ``cache_path``
+        when it exists (and save the fit there when it does not)."""
+        if cache_path and os.path.exists(cache_path):
+            return cls(res, torch.as_tensor(np.load(cache_path)))
+        g = (np.arange(res, dtype=np.float32) + 0.5) / res
+        grid = np.stack(np.meshgrid(g, g, g, indexing="ij"), axis=-1)
+        coeffs = fit_rgb_to_spectrum(grid, colorspace)
+        if cache_path:
+            np.save(cache_path, coeffs.numpy())
+        return cls(res, coeffs)
+
+    @classmethod
     def srgb(cls):
-        """The reference's shipped 64^3 sRGB table, read by path from its
-        data directory (no fitting)."""
+        """The shipped 64^3 sRGB table, ``ops/data/rgb2spec_srgb_64.npy``
+        (a copy of the reference's; no fitting)."""
         if "srgb64" not in _TABLES:
             path = os.path.join(data.DATA_DIR, "rgb2spec_srgb_64.npy")
             coeffs = torch.as_tensor(np.load(path).astype(np.float32))

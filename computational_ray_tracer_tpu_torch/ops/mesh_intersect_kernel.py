@@ -89,7 +89,8 @@ def watertight(o, ray, tm, tri):
 
 def _watertight(o, ray, tm, tri):
     """:func:`watertight`, then whether each pair passes the edge-sign
-    test, and whether it passes the range test as well."""
+    test, whether it passes the range test as well, the first barycentric
+    b0 and whether the pair hits."""
     kz_x, kz_y, inv_dz, sx, sy = ray
 
     def sheared(k):
@@ -135,7 +136,7 @@ def _watertight(o, ray, tm, tri):
     hit = same_side & nonzero & in_range & (t > delta_t)
     ranged = same_side & nonzero & in_range
     return (torch.where(hit, t, torch.full_like(t, math.inf)),
-            e1 * inv_det, e2 * inv_det, same_side, ranged)
+            e1 * inv_det, e2 * inv_det, same_side, ranged, e0 * inv_det, hit)
 
 
 def _tri_major(o, d, tm, tris, keep, anyhit, stats):
@@ -143,7 +144,7 @@ def _tri_major(o, d, tm, tris, keep, anyhit, stats):
     tensors. Returns (t, idx, b1, b2), each (n,), with inf/-1/0/0 on a miss
     and the lowest index among exact ties, or with ``anyhit`` (hit,);
     then, with ``stats``, the (tests, passed, ranged) counters."""
-    t, e1_det, e2_det, side, ranged = _watertight(
+    t, e1_det, e2_det, side, ranged, _, _ = _watertight(
         o.unbind(-1), ray_shear(d), tm, [c[:, None] for c in tris])
     if keep is not None:
         t = torch.where(keep[:, None], t, torch.full_like(t, math.inf))

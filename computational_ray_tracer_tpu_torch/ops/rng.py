@@ -49,9 +49,10 @@ def mix_bits(x):
     return x ^ (x >> 16)
 
 
-def hash_u32(*args):
-    """Variadic deterministic hash of integer arrays -> 32-bit word."""
-    h = 0x9E3779B9
+def hash_u32(*args, h=0x9E3779B9):
+    """Variadic deterministic hash of integer arrays -> 32-bit word. ``h``
+    continues a hash over more words: ``hash_u32(a, b, c)`` equals
+    ``hash_u32(c, h=hash_u32(a, b))``."""
     for a in args:
         h = mix_bits(h ^ _mul(_u32(a), 0x01000193))
     return h
@@ -159,8 +160,8 @@ _JOE_KUO = [
 
 
 def _load_tail_initials(first_dim, n_needed):
-    """Committed CBC-searched initials for dims >= first_dim, read from the
-    reference package's ``sobol_tail.npz``."""
+    """Committed CBC-searched initials for dims >= first_dim, read from
+    ``ops/data/sobol_tail.npz`` (a copy of the reference's table)."""
     z = np.load(os.path.join(DATA_DIR, "sobol_tail.npz"))
     if int(z["first_dim"]) != first_dim:
         raise ValueError("sobol_tail.npz does not start at dim %d" % first_dim)
@@ -169,15 +170,71 @@ def _load_tail_initials(first_dim, n_needed):
              [int(v) for v in z["m"][i, :int(z["s"][i])]]) for i in range(n)]
 
 
+def _primitive_polys_gf2(count):
+    """The first ``count`` primitive polynomials over GF(2) in increasing
+    degree, then increasing ``a`` (pbrt's encoding: the inner coefficients
+    without the leading and trailing 1), as (degree, a)."""
+    out = []
+    deg = 1
+    while len(out) < count:
+        order = (1 << deg) - 1
+        fac, n, p = set(), order, 2
+        while p * p <= n:
+            while n % p == 0:
+                fac.add(p)
+                n //= p
+            p += 1
+        if n > 1:
+            fac.add(n)
+        for a in range(1 << (deg - 1)):
+            poly = (1 << deg) | (a << 1) | 1
+
+            def mulmod(u, v):
+                r = 0
+                while v:
+                    if v & 1:
+                        r ^= u
+                    v >>= 1
+                    u <<= 1
+                    if u >> deg & 1:
+                        u ^= poly
+                return r
+
+            def powmod(b, e):
+                r = 1
+                while e:
+                    if e & 1:
+                        r = mulmod(r, b)
+                    b = mulmod(b, b)
+                    e >>= 1
+                return r
+
+            # primitive iff x has multiplicative order 2^deg - 1
+            if powmod(2, order) == 1 and all(powmod(2, order // q) != 1
+                                             for q in fac):
+                out.append((deg, a))
+                if len(out) == count:
+                    break
+        deg += 1
+    return out
+
+
 def _sobol_matrices(n_dims=72, n_bits=32):
     """(n_dims, 32) direction-number matrices: van der Corput, the Joe-Kuo
-    initials, then the committed tail."""
+    initials, the committed tail, then (past the tail only) the
+    reference's fallback: the next primitive polynomials with hashed odd
+    initials."""
     jk = list(_JOE_KUO)
     if n_dims - 1 > len(jk):
         jk.extend(_load_tail_initials(len(jk) + 2, n_dims - 1 - len(jk)))
     if n_dims - 1 > len(jk):
-        raise ValueError("the committed Sobol' table holds %d dims"
-                         % (len(jk) + 1))
+        state = 12345
+        for s, a in _primitive_polys_gf2(n_dims - 1)[len(jk):]:
+            m_init = []
+            for i in range(1, s + 1):
+                state = (state * 0x9E3779B97F4A7C15 + 1) & 0xFFFFFFFFFFFFFFFF
+                m_init.append((state >> 40) % (1 << i) | 1)
+            jk.append((s, a, m_init))
     V = np.zeros((n_dims, n_bits), dtype=np.uint32)
     for k in range(n_bits):
         V[0, k] = np.uint32(1) << (31 - k)
@@ -244,6 +301,11 @@ def fast_owen_scramble(v, scramble_seed):
     for c in (0x6C50B47C, 0xB82F1E52, 0xC7AFE638, 0x8D22F6E6):
         v = v ^ _mul(v, c)
     return _reverse_bits32(v)
+
+
+def binary_permute_scramble(v, scramble_seed):
+    """XOR scrambling (pbrt's BinaryPermuteScrambler)."""
+    return _u32(scramble_seed) ^ _u32(v)
 
 
 def _shuffled_index(seed, pixel, sample_idx, dim, spp):

@@ -23,25 +23,33 @@ from computational_ray_tracer_tpu_torch.ops import color as colorlib
 from computational_ray_tracer_tpu_torch.ops import spectra_data as data
 from computational_ray_tracer_tpu_torch.ops import spectrum as spec
 
-# Bradford cone response, XYZ -> LMS.
-_LMS_FROM_XYZ = np.array([
-    [0.8951, 0.2664, -0.1614],
-    [-0.7502, 1.7135, 0.0367],
-    [0.0389, -0.0685, 1.0296]], dtype=np.float64)
-_XYZ_FROM_LMS = np.linalg.inv(_LMS_FROM_XYZ)
+# Classic X-Rite ColorChecker 24 patch sRGB values (8-bit).
+MACBETH_SRGB = np.array([
+    [115, 82, 68], [194, 150, 130], [98, 122, 157], [87, 108, 67],
+    [133, 128, 177], [103, 189, 170], [214, 126, 44], [80, 91, 166],
+    [193, 90, 99], [94, 60, 108], [157, 188, 64], [224, 163, 46],
+    [56, 61, 150], [70, 148, 73], [175, 54, 60], [231, 199, 31],
+    [187, 86, 149], [8, 133, 161], [243, 243, 242], [200, 200, 200],
+    [160, 160, 160], [122, 122, 122], [85, 85, 85], [52, 52, 52],
+], dtype=np.float64) / 255.0
+
+_SWATCH_CACHE = {}
 
 
-def _xy_to_xyz(xy):
-    x, y = xy
-    return np.array([x / y, 1.0, (1.0 - x - y) / y], dtype=np.float64)
-
-
-def white_balance_matrix(src_xy, dst_xy):
-    """3x3 XYZ -> XYZ Bradford adaptation from whitepoint src to dst."""
-    lms_s = _LMS_FROM_XYZ @ _xy_to_xyz(src_xy)
-    lms_d = _LMS_FROM_XYZ @ _xy_to_xyz(dst_xy)
-    return (_XYZ_FROM_LMS @ np.diag(lms_d / lms_s) @ _LMS_FROM_XYZ).astype(
-        np.float32)
+def macbeth_reflectances(synthetic=False):
+    """(24, 471) float64 reflectances of the ColorChecker patches: the
+    measured swatches, or with ``synthetic`` the published sRGB patch
+    values lifted to spectra through the sigmoid fit (an oracle)."""
+    if not synthetic:
+        return np.asarray(data.MACBETH_SWATCHES, dtype=np.float64)
+    if "swatches" not in _SWATCH_CACHE:
+        lin = colorlib.srgb_to_linear(torch.as_tensor(MACBETH_SRGB,
+                                                      dtype=torch.float32))
+        coeffs = colorlib.fit_rgb_to_spectrum(lin)
+        lam = spec.dense_lambda()
+        refl = colorlib.sigmoid_polynomial(coeffs, lam.expand(24, -1))
+        _SWATCH_CACHE["swatches"] = refl.numpy().astype(np.float64)
+    return _SWATCH_CACHE["swatches"]
 
 
 def _illum_xyz(illum):
@@ -75,12 +83,13 @@ class PixelSensor:
             m = np.eye(3, dtype=np.float32)
             if sensor_illum is not None:
                 src = _illum_xyz(sensor_illum)
-                m = white_balance_matrix(tuple(src[:2] / src.sum()), cs.w)
+                m = colorlib.white_balance_matrix(tuple(src[:2] / src.sum()),
+                                                  cs.w)
             return cls(curves.astype(np.float32), m)
         curves = np.stack(data.SENSOR_CURVES[sensor_name]).astype(np.float64)
         illum = np.asarray(data.ILLUM_D65 if sensor_illum is None
                            else sensor_illum, np.float64)
-        refl = np.asarray(data.MACBETH_SWATCHES, np.float64)
+        refl = macbeth_reflectances()
         rgb_cam = _project_reflectance(refl, illum, curves)
         cmf = [np.asarray(c, np.float64)
                for c in (data.CIE_X, data.CIE_Y, data.CIE_Z)]

@@ -1,5 +1,7 @@
 """Hero-wavelength spectral core (``computational_ray_tracer_tpu/ops/
-spectrum.py``): sampled wavelengths, dense-table interpolation, CIE XYZ.
+spectrum.py``): sampled wavelengths, dense-table interpolation, the
+spectrum classes (constant, dense, piecewise linear, blackbody), CIE XYZ
+and photometric quadrature.
 
 A sampled spectrum is a float32 tensor with a trailing axis of 8 hero
 wavelengths. Dense 1 nm tables over [360, 830] are interpolated with a
@@ -17,6 +19,8 @@ lerps and breaks no fusion).
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Any
 
 import numpy as np
 import torch
@@ -43,8 +47,36 @@ class SampledWavelengths:
     lam: torch.Tensor
     pdf: torch.Tensor
 
+    def terminate_secondary(self):
+        """Collapse to the hero wavelength (dispersive paths): pdf
+        [p0 / S, 0, ...] unless already collapsed."""
+        s = self.lam.shape[-1]
+        new_pdf = torch.cat([self.pdf[..., :1] / s,
+                             torch.zeros_like(self.pdf[..., 1:])], dim=-1)
+        pdf = torch.where(self.secondary_terminated()[..., None], self.pdf,
+                          new_pdf)
+        return SampledWavelengths(self.lam, pdf)
+
     def secondary_terminated(self):
         return torch.all(self.pdf[..., 1:] == 0.0, dim=-1)
+
+
+def average(s):
+    """Mean over the wavelength axis."""
+    return torch.mean(s, dim=-1)
+
+
+def spectrum_clamp(s, lo=0.0, hi=math.inf):
+    return torch.clamp(s, lo, hi)
+
+
+def spectrum_lerp(t, a, b):
+    """a + (b - a) t, with t broadcast over the wavelength axis when it has
+    one dimension fewer than a."""
+    t = torch.as_tensor(t, dtype=a.dtype, device=a.device)
+    if t.ndim == a.ndim - 1:
+        t = t[..., None]
+    return a + (b - a) * t
 
 
 def visible_wavelengths_pdf(lam):
@@ -54,13 +86,18 @@ def visible_wavelengths_pdf(lam):
     return torch.where(inside, pdf, torch.zeros_like(pdf))
 
 
+def sample_visible_wavelength(u):
+    """Inverse-CDF sample of the visible-importance distribution."""
+    return 538.0 - 138.888889 * torch.atanh(0.85691062 - 1.82750197 * u)
+
+
 def sample_visible_wavelengths(u, n=N_SPECTRUM_SAMPLES):
     """Stratified importance-sampled hero wavelengths: slot i uses
     wrap(u + i/n) through the visible inverse CDF."""
     i = torch.arange(n, dtype=u.dtype, device=u.device)
     up = u[..., None] + (i + 0.0) / n
     up = torch.where(up > 1.0, up - 1.0, up)
-    lam = 538.0 - 138.888889 * torch.atanh(0.85691062 - 1.82750197 * up)
+    lam = sample_visible_wavelength(up)
     return SampledWavelengths(lam, visible_wavelengths_pdf(lam))
 
 
@@ -101,6 +138,31 @@ def sample_dense_multi(tables, lam):
     return torch.where(inside[..., None], v, torch.zeros_like(v))
 
 
+_DENSE_T = {}
+
+
+def dense_lambda(device="cpu"):
+    """The dense 1 nm grid (471,) as float32 on ``device`` (cached)."""
+    key = str(device)
+    if key not in _DENSE_T:
+        _DENSE_T[key] = torch.as_tensor(data.DENSE_LAMBDA.astype(np.float32),
+                                        device=device)
+    return _DENSE_T[key]
+
+
+@dataclasses.dataclass
+class ConstantSpectrum:
+    c: Any
+
+    def __call__(self, lam):
+        return torch.broadcast_to(
+            torch.as_tensor(self.c, dtype=lam.dtype, device=lam.device),
+            lam.shape)
+
+    def max_value(self):
+        return torch.as_tensor(self.c)
+
+
 @dataclasses.dataclass
 class DenselySampledSpectrum:
     """A dense 1 nm table over [360, 830]."""
@@ -111,8 +173,87 @@ class DenselySampledSpectrum:
         return cls(torch.as_tensor(data.get_named_spectrum(name),
                                    device=device))
 
+    @classmethod
+    def from_spectrum(cls, spec, device="cpu"):
+        return cls(spec(dense_lambda(device)))
+
     def __call__(self, lam):
         return sample_dense(self.values, lam)
+
+    def max_value(self):
+        return torch.max(self.values)
+
+
+def _interp(x, xp, fp):
+    """``jnp.interp(x, xp, fp)``: piecewise-linear through (xp, fp),
+    clamped to fp's end values outside [xp[0], xp[-1]]."""
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1,
+                    xp.shape[0] - 1)
+    dx = xp[i] - xp[i - 1]
+    flat = dx.abs() <= np.spacing(np.finfo(np.float32).eps)
+    dxs = torch.where(flat, torch.ones_like(dx), dx)
+    f = torch.where(flat, fp[i - 1],
+                    fp[i - 1] + ((x - xp[i - 1]) / dxs) * (fp[i] - fp[i - 1]))
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+@dataclasses.dataclass
+class PiecewiseLinearSpectrum:
+    """Sorted (lambda, value) control points, linear in between, 0
+    outside."""
+    lams: torch.Tensor
+    values: torch.Tensor
+
+    @classmethod
+    def from_interleaved(cls, samples, normalize=False, device="cpu"):
+        """Alternating [lam0, v0, lam1, v1, ...]; ``normalize`` scales the
+        values to luminance 1 (inner product with y-bar = its integral)."""
+        samples = np.asarray(samples, dtype=np.float32)
+        lams, vals = (np.ascontiguousarray(samples[k::2]) for k in (0, 1))
+        t = lambda a: torch.as_tensor(a, device=device)
+        if normalize:
+            ybar = DenselySampledSpectrum(t(data.CIE_Y))
+            scale = CIE_Y_INTEGRAL / inner_product(
+                cls(t(lams), t(vals)), ybar, device)
+            vals = vals * float(scale)
+        return cls(t(lams), t(vals))
+
+    def __call__(self, lam):
+        v = _interp(lam, self.lams, self.values)
+        inside = (lam >= self.lams[0]) & (lam <= self.lams[-1])
+        return torch.where(inside, v, torch.zeros_like(v))
+
+    def max_value(self):
+        return torch.max(self.values)
+
+
+@dataclasses.dataclass
+class BlackbodySpectrum:
+    """Planck emitter normalized to peak 1 through Wien's displacement law
+    (differentiable in T)."""
+    T: Any
+
+    def __call__(self, lam):
+        T = torch.as_tensor(self.T, dtype=torch.float32, device=lam.device)
+        c, h, kb = 299792458.0, 6.62606957e-34, 1.3806488e-23
+        lam_m = lam * 1e-9
+        le = (2.0 * h * c * c) / (lam_m ** 5 * torch.expm1(
+            (h * c) / (lam_m * kb * T)))
+        lam_max = 2.8977721e-3 / T
+        norm = (2.0 * h * c * c) / (lam_max ** 5 * torch.expm1(
+            (h * c) / (lam_max * kb * T)))
+        return le / norm
+
+    def max_value(self):
+        return torch.tensor(1.0)
+
+
+def inner_product(f, g, device="cuda"):
+    """The sum of f(lam) g(lam) over the dense 1 nm grid (pbrt's
+    InnerProduct); ``device`` is where the spectra's tables are."""
+    lam = dense_lambda(device)
+    return torch.sum(f(lam) * g(lam))
 
 
 def sample_dense_rows(table, rows, lam):
@@ -152,3 +293,28 @@ def sampled_to_xyz(s, wl: SampledWavelengths):
     cmf = cie_xyz_at(wl.lam)
     w = safe_div(s, wl.pdf)[..., None]
     return torch.mean(cmf * w, dim=-2) / CIE_Y_INTEGRAL
+
+
+def sample_dense_rows_multi(tables, rows, lam):
+    """Per-ray rows of several (M, 471) tables at the same wavelengths:
+    a tuple of G tensors (..., S). Rows are clamped to [0, M)."""
+    rows = torch.clamp(rows, 0, tables[0].shape[0] - 1)
+    return tuple(sample_dense_rows(t, rows, lam) for t in tables)
+
+
+def sampled_y(s, wl: SampledWavelengths):
+    """MC estimate of the luminance Y of a sampled spectrum."""
+    ybar = sample_dense(cie_tables(wl.lam.device)[:, 1], wl.lam)
+    return torch.mean(safe_div(s, wl.pdf) * ybar, dim=-1) / CIE_Y_INTEGRAL
+
+
+def spectrum_to_xyz(spec, device="cuda"):
+    """XYZ of a spectrum distribution by dense 1 nm quadrature."""
+    v = spec(dense_lambda(device))
+    return torch.sum(v[:, None] * cie_tables(device), dim=0) / CIE_Y_INTEGRAL
+
+
+def spectrum_to_photometric(spec, device="cuda"):
+    """Luminous output 683 * sum(y-bar * L) over the dense 1 nm grid."""
+    return 683.0 * torch.sum(spec(dense_lambda(device))
+                             * cie_tables(device)[:, 1])

@@ -1,14 +1,16 @@
 """Triangle meshes (``computational_ray_tracer_tpu/ops/triangle.py``): the
-flattened mesh, brute-force closest/any hit and barycentric surface info.
+flattened mesh, the ray/triangle tests on broadcasting pairs, brute-force
+closest/any hit and barycentric surface info.
 
-The closest-hit test itself lives in ``ops/mesh_intersect_kernel.py``
-beside its CUDA kernel; ``mesh_intersect_brute`` here is its plain PyTorch
-version under the reference's name.
+The watertight test itself lives in ``ops/mesh_intersect_kernel.py``
+beside its CUDA kernel; ``triangle_intersect`` and ``mesh_intersect_brute``
+here run its arithmetic under the reference's names.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -70,6 +72,16 @@ class MeshData:
     def n_triangles(self):
         return self.indices.shape[0]
 
+    def triangle_vertices(self, tri_idx):
+        """Triangle ids (...,) -> their three vertex positions, each
+        (..., 3)."""
+        i = self.indices[tri_idx]
+        return tuple(self.positions[i[..., k]] for k in range(3))
+
+    def bounds(self):
+        return (torch.min(self.positions, dim=0).values,
+                torch.max(self.positions, dim=0).values)
+
     @property
     def tri_verts(self):
         """(9, F) contiguous float32 [p0 xyz, p1 xyz, p2 xyz] rows — the
@@ -97,6 +109,39 @@ def _default_frame(normals):
     t = np.cross(a, normals)
     ln = np.linalg.norm(t, axis=1, keepdims=True)
     return (t / np.maximum(ln, 1e-12)).astype(np.float32)
+
+
+def triangle_intersect(o, d, t_max, p0, p1, p2):
+    """The watertight test of rays against triangles on broadcasting pairs:
+    o/d (..., 3), t_max (...), p0/p1/p2 (..., 3). Returns (t, b0, b1, b2,
+    hit) with t = inf where the pair misses (the barycentrics are those of
+    the ray's plane crossing, also on a miss)."""
+    tri = [c for p in (p0, p1, p2) for c in p.unbind(-1)]
+    t, b1, b2, _, _, b0, hit = mik._watertight(o.unbind(-1), mik.ray_shear(d),
+                                               t_max, tri)
+    return t, b0, b1, b2, hit
+
+
+def simple_triangle_intersect(o, d, t_max, p0, p1, p2):
+    """The Cramer's-rule (Shirley-style) ray/triangle solve, with the
+    signature and outputs of :func:`triangle_intersect`; kept for parity
+    and tests."""
+    e1 = p1 - p0
+    e2 = p2 - p0
+    s = o - p0
+    dot = lambda a, b: torch.sum(a * b, dim=-1)
+    de2 = torch.linalg.cross(d, e2)
+    se1 = torch.linalg.cross(s, e1)
+    den = dot(de2, e1)
+    ok = den.abs() > 1e-12
+    inv = 1.0 / torch.where(ok, den, torch.ones_like(den))
+    b1 = dot(de2, s) * inv
+    b2 = dot(se1, d) * inv
+    t = dot(se1, e2) * inv
+    hit = ok & (b1 >= 0) & (b2 >= 0) & (b1 + b2 <= 1) & (t > 1e-4) \
+        & (t < t_max)
+    return (torch.where(hit, t, torch.full_like(t, math.inf)),
+            1.0 - b1 - b2, b1, b2, hit)
 
 
 def mesh_intersect_brute(o, d, t_max, mesh: MeshData, tri_mask=None,

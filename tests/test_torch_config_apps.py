@@ -548,19 +548,33 @@ def test_flagship_spec_is_the_reference_spec():
     assert trt.flagship_scene_spec(3.0) == jrt.flagship_scene_spec(3.0)
 
 
-UNPORTED = ["sampler_test", "filter_film_test", "spectrum_color",
-            "montecarlo_test", "polygon_app", "crossbridge", "ode_app",
-            "plotter_demo"]
+# The eight apps the dispatcher refused until they were ported; it now
+# dispatches every one of them.
+FORMERLY_UNPORTED = ["sampler_test", "filter_film_test", "spectrum_color",
+                     "montecarlo_test", "polygon_app", "crossbridge",
+                     "ode_app", "plotter_demo"]
 
 
-@pytest.mark.parametrize("app", UNPORTED)
-def test_dispatcher_refuses_an_app_not_yet_ported(app, capsys):
+@pytest.mark.parametrize("app", FORMERLY_UNPORTED)
+def test_dispatcher_refuses_an_app_not_yet_ported(app, capsys, monkeypatch):
+    """The test kept its name from when these apps were refused. It now
+    checks two things for each formerly unported app: the dispatcher
+    refuses a name it has no app for (``<app>_2``, exit code 2), and it
+    dispatches ``<app>`` itself to that app's ``main`` on the device
+    asked."""
+    import importlib
     from computational_ray_tracer_tpu.apps import APP_NAMES as J_APPS
-    assert app in J_APPS and app not in APP_NAMES
+    assert app in J_APPS and app in APP_NAMES
     with pytest.raises(SystemExit) as err:
-        tdispatch.main([app, "--out", "x", "--device", "cpu"])
+        tdispatch.main([app + "_2", "--out", "x", "--device", "cpu"])
     assert err.value.code == 2
     assert "invalid choice" in capsys.readouterr().err
+    calls = []
+    mod = importlib.import_module(
+        f"computational_ray_tracer_tpu_torch.apps.{app}")
+    monkeypatch.setattr(mod, "main", lambda **kw: calls.append(kw) or {})
+    assert tdispatch.main([app, "--out", "x", "--device", "cpu"]) == {}
+    assert calls == [{"outdir": "x", "device": "cpu"}]
 
 
 @pytest.mark.parametrize("argv,device", [

@@ -3,7 +3,7 @@ headline render of its phase 4 that phase 16 is held to.
 
     python tools/smoke_phases.py [PHASE ...]
 
-PHASE is any of 16, 17, 18, 19, 20 (default: 16 17). Builds the kernels,
+PHASE is any of 16, 17, 18, 19, 20, 21 (default: 16 17). Builds the kernels,
 renders the Cornell headline (512x512, spp 32, path/MIS depth 4) through
 ``render()`` after one warm-up pass, then runs the phases asked for, each
 printing its lines as in the smoke: ``chip_smoke.sharded_phase`` (16:
@@ -12,11 +12,12 @@ card over gloo, config 5's sharded train step),
 ``chip_smoke.options_card_phase`` (17: the sobol_global headline and the
 128x128 option and camera passes against the CPU),
 ``chip_smoke.raytracer_phase`` (18: the raytracer app, its resume),
-``chip_smoke.shape_phase`` (19: the shape_test app on the card and the CPU)
-and ``chip_smoke.scene_file_phase`` (20: the OBJ/PLY loaders and a JSON
-scene file); then one line of each phase's seconds. Phase 16's config 5
-line carries no 14b time (14b does not run here). Needs a CUDA card;
-imports nothing of JAX.
+``chip_smoke.shape_phase`` (19: the shape_test app on the card and the
+CPU), ``chip_smoke.scene_file_phase`` (20: the OBJ/PLY loaders and a JSON
+scene file) and ``chip_smoke.apps_phase`` (21: the eight validation apps
+on the card and the CPU); then one line of each phase's seconds. Phase
+16's config 5 line carries no 14b time (14b does not run here). Needs a
+CUDA card; imports nothing of JAX.
 """
 
 import os
@@ -61,6 +62,7 @@ def main():
         "18": lambda: cs.raytracer_phase(dev, card),
         "19": lambda: cs.shape_phase(dev, card),
         "20": lambda: cs.scene_file_phase(dev, card),
+        "21": lambda: cs.apps_phase(dev, card),
     }
     seconds = {"render_s_per_pass": s_pass}
     for name in sys.argv[1:] or ["16", "17"]:
