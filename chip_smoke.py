@@ -47,17 +47,24 @@ failed check raises, so the script exits non-zero:
 9. the interpolation kernel vs its plain version on the card, bitwise, on
    (a) the flagship pass's spectral-cache call (C = 5), (b) its sensor
    call (C = 3), (c) a seeded 471 x 128 table at 2^21 rows with w exactly
-   0 and 1 on some rows; both times, the bound, and the time of
+   0 and 1 on some rows, (d) phase 21's shape (a (471, 3) sensor table
+   at 2,048 visible wavelengths); both times, the bound, and the time of
    torch.nn.functional.grid_sample on the same inputs (the yardstick;
    the port never calls it); (9b) the interpolation kernel's backward (the
    table gradient) vs its plain backward, within 2e-5 of the sum of
    |terms| each cell gathers, and run twice to the same bits, on the
-   flagship cache (C = 5) and the seeded 471 x 128 input with seeded
+   flagship cache (C = 5), the seeded 471 x 128 input, (e) 2^21 x 16 rows
+   all on table row 235 (the worst skew) and (f) 65,537 x 13 rows with i0
+   at 0, at K-2 and outside the table and w at 0 and 1, with seeded
    gradients, and (in phase 14) on the config 5 cache (C = 13) and the
    Cornell headline cache (C = 16, 2^21 rows) with the gradients their
    backward passes carried; each timed as replays of a CUDA graph, with
-   its byte bound, the plain backward's time and grid_sample's backward
-   (aten.grid_sampler_2d_backward) as the yardstick;
+   its byte bound, the plain backward's time, grid_sample's backward
+   (aten.grid_sampler_2d_backward) as the yardstick and the kernel's
+   launch plan (blocks an SM, rows a chunk, clusters); at f and at the
+   config 5 cache one launch captured in a CUDA graph and replayed twice
+   must give the eager launch's bits (each launch leaves its ticket
+   counters at 0);
 10. the flagship render: render() over spp 4 after one warm-up pass;
    seconds per pass, rays/s (1 + (D-1) + D rays per sample), launches of
    the interpolation kernel and both octree modes, image checks (finite,
@@ -211,6 +218,7 @@ from computational_ray_tracer_tpu_torch.ops import mesh_intersect_kernel as mik
 from computational_ray_tracer_tpu_torch.ops import octree as octmod
 from computational_ray_tracer_tpu_torch.ops import octree_kernel as okern
 from computational_ray_tracer_tpu_torch.ops import sensor as sen
+from computational_ray_tracer_tpu_torch.ops import spectrum as spec
 from computational_ray_tracer_tpu_torch.ops import film as filmmod
 from computational_ray_tracer_tpu_torch.ops import triangle as trimod
 from computational_ray_tracer_tpu_torch.parallel import sharding as par
@@ -881,6 +889,14 @@ def lerp_grid(i0, w, k):
     return torch.stack([x, torch.zeros_like(x)], -1).reshape(1, 1, -1, 2)
 
 
+def sensor_rows(n, device):
+    """(i0, w) of phase 21's sensor lookups: n / 8 stratified u through the
+    visible-wavelength sampler (filter_film_test's swatches: n = 2,048)."""
+    u = torch.linspace(0.001, 0.999, n // 8, device=device)
+    i0, w, _ = spec._dense_idx_frac(spec.sample_visible_wavelengths(u).lam)
+    return i0.reshape(-1).to(torch.int32), w.reshape(-1).contiguous()
+
+
 def interp_case(name, tables, i0, w):
     """The interpolation kernel (through its wrapper) vs its plain version
     on the same card tensors: raises unless bitwise equal. Times both and
@@ -938,7 +954,7 @@ def interp_backward_case(name, g, i0, w, k):
     run_to_run = torch.equal(out, again)
     assert run_to_run, f"{name}: two runs of the backward kernel differ"
     img = torch.zeros((1, c, 1, k), device=g.device)
-    grid = lerp_grid(i0, w, k)
+    grid = lerp_grid(i0.clamp(0, k - 2), w, k)   # the kernel's clamp
     grad_out = g.T.contiguous().reshape(1, c, 1, n)
     lib = lambda: torch.ops.aten.grid_sampler_2d_backward(
         grad_out, img, grid, 0, 0, True, [True, False])[0]
@@ -957,8 +973,51 @@ def interp_backward_case(name, g, i0, w, k):
            "library_max_abs_diff": lib_err,
            "bound_ms": bound_ms, "bound_by": bound_by}
     row["share_of_bound"] = bound_ms / row["ms"]
+    if g.is_cuda:
+        row["plan"] = ik.backward_plan(k, c, n)
+        row["warps_an_sm"] = (row["plan"]["blocks_an_sm"]
+                              * row["plan"]["threads_a_block"] // 32)
     print("phase9b", json.dumps(row), flush=True)
     return row
+
+
+def edge_rows(n, c, k, seed, device):
+    """Phase 9b's case f: seeded (g, i0, w) of n rows whose i0 are at 0 (a
+    quarter), at k-2 (a quarter) and outside [0, k-2] (every 7th row,
+    clamped by the kernel), the rest uniform, and w exactly 0 or 1 on every
+    5th row."""
+    rng = np.random.default_rng(seed)
+    i0 = rng.integers(0, k - 1, n).astype(np.int32)
+    i0[: n // 4] = 0
+    i0[n // 4: n // 2] = k - 2
+    i0[::7] = np.where(np.arange(0, n, 7) % 2 == 0, -3, k + 2)
+    w = rng.uniform(0, 1, n).astype(np.float32)
+    w[::5] = (np.arange(0, n, 5) // 5 % 2).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=device)
+    return seeded_gradient(n, c, seed, device), t(i0), t(w), k
+
+
+def backward_graph_check(name, g, i0, w, k):
+    """One backward launch captured in a CUDA graph and replayed twice:
+    each replay, and an eager launch after them, gives the eager launch's
+    bits (the launch's last cluster sets its ticket counters back to 0)."""
+    eager = ik.dense_interp_backward(g, i0, w, k)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ik.dense_interp_backward(g, i0, w, k)
+    same = []
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        same.append(torch.equal(captured, eager))
+    same.append(torch.equal(ik.dense_interp_backward(g, i0, w, k), eager))
+    assert all(same), f"{name}: graph replays differ from the eager launch"
+    print("phase9b_graph", json.dumps({
+        "case": name, "rows": g.shape[0], "c": g.shape[1],
+        "plan": ik.backward_plan(k, g.shape[1], g.shape[0]),
+        "replays_equal_eager": same[:2], "eager_after_equal": same[2]}),
+        flush=True)
 
 
 def seeded_gradient(n, c, seed, device):
@@ -2202,7 +2261,9 @@ def main():
         interp_case("b_flagship_sensor", *calls[3]),
         interp_case("c_seeded_471x128", t(gen.normal(size=(471, 128)).astype(
             np.float32)), t(gen.integers(0, 470, n_stress).astype(np.int32)),
-            t(w_stress))]
+            t(w_stress)),
+        interp_case("d_phase21_sensor", t(gen.uniform(0, 1, (471, 3)).astype(
+            np.float32)), *sensor_rows(2048, dev))]
     # phase 9b: the backward kernel on the flagship cache and the stress
     # input (the config 5 and Cornell caches follow in phase 14)
     tables, i0, w = calls[5]
@@ -2214,7 +2275,13 @@ def main():
     backward_rows.append(interp_backward_case(
         "c_seeded_471x128", seeded_gradient(n_stress, 128, 2, dev), i0_s, w_s,
         471))
-    del calls, i0_s, w_s
+    backward_rows.append(interp_backward_case(
+        "e_one_table_row", seeded_gradient(n_stress, 16, 3, dev),
+        torch.full_like(i0_s, 235), w_s, 471))
+    f_rows = edge_rows(65537, 13, 471, 4, dev)
+    backward_rows.append(interp_backward_case("f_edges", *f_rows))
+    backward_graph_check("f_edges", *f_rows)
+    del calls, i0_s, w_s, f_rows
 
     # phase 10: the flagship render
     film, sensor, row = timed_render("phase10", f_scene, f_camera, f_cfg,
@@ -2252,6 +2319,7 @@ def main():
     # phase 14: training at full width
     train_launches, c5_call, train_s_step = config5_phase(dev, card)
     backward_rows.append(interp_backward_case("d_config5_cache", *c5_call))
+    backward_graph_check("d_config5_cache", *c5_call)
     backward_rows[-1]["launches"] = train_launches["interp_backward"]
     headline_call = headline_grad_phase(dev, card)
     backward_rows.insert(1, interp_backward_case("b_cornell_headline_cache",

@@ -15,9 +15,10 @@ Port of ``computational_ray_tracer_tpu/ops/pallas_interp.py`` (the
   for CPU tensors it runs the plain version, whose autograd carries the
   table gradient; for CUDA tensors it launches the kernel (or raises)
   through an autograd Function whose backward launches the hand-written
-  backward kernel ``crt_dense_interp_backward`` when the table needs a
-  gradient, and nothing otherwise. ``LAUNCHES`` counts forward launches,
-  ``LAUNCHES_BACKWARD`` backward ones.
+  backward kernel ``crt_dense_interp_backward`` (one launch, the same
+  bits in every run) when the table needs a gradient, and nothing
+  otherwise. ``LAUNCHES`` counts forward launches, ``LAUNCHES_BACKWARD``
+  backward ones; :func:`backward_plan` reports the backward's grid.
 - :func:`dense_interp_backward_plain` is the backward's plain version: the
   two ``index_add_`` of the plain forward's autograd. i0 and w get no
   gradient: the wavelengths are a sampling decision, detached as in the
@@ -100,6 +101,27 @@ def dense_interp(tables, i0, w):
     if tables.device.type != "cuda":
         raise ValueError(f"dense_interp: unsupported device {tables.device}")
     return _DenseInterp.apply(tables, i0, w)
+
+
+PLAN_FIELDS = ("threads_a_block", "columns_a_tile", "tiles", "rows_a_chunk",
+               "rows_a_block", "blocks_a_cluster", "clusters_a_tile",
+               "blocks_an_sm", "smem_bytes")
+
+
+def backward_plan(k, c, n):
+    """The backward kernel's launch plan for a (k, c) table and n rows, as
+    a dict of PLAN_FIELDS (needs the kernel library, so a card); None if
+    the kernel cannot take the shape."""
+    import ctypes
+    from computational_ray_tracer_tpu_torch.kernels import build
+    lib = build.load_library()
+    fn = lib.crt_dense_interp_backward_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    if fn(k, c, n, ctypes.cast(out, ctypes.c_void_p)) != 0:
+        return None
+    return dict(zip(PLAN_FIELDS, out))
 
 
 def _launch_backward(g, i0, w, k):

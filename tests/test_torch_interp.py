@@ -157,18 +157,51 @@ def test_dense_interp_kernel_shapes_on_cuda(c, k):
             assert torch.equal(out, plain), (c, k, n, sl)
 
 
-def test_plain_backward_matches_jax_grad():
+# (columns, wavelength array shape, wavelengths): "spread" uniform over
+# 350-840 nm with the first row at both clamp edges and outside, "one_bin"
+# every wavelength in [595, 596) nm (i0 = 235, the worst skew), "clamped"
+# most outside [360, 830] and the rest at the edges.
+BACKWARD_JAX_CASES = {
+    "c13": (13, (256, 8), "spread"),
+    "c1": (1, (256, 8), "spread"),
+    "c5": (5, (256, 8), "spread"),
+    "c16": (16, (256, 8), "spread"),
+    "c128": (128, (256, 8), "spread"),
+    "n1": (13, (1,), "spread"),
+    "n31": (13, (31,), "spread"),
+    "n2049": (13, (2049,), "spread"),
+    "one_bin": (16, (256, 8), "one_bin"),
+    "clamped": (13, (256, 8), "clamped"),
+}
+
+
+@pytest.mark.parametrize("case", list(BACKWARD_JAX_CASES))
+def test_plain_backward_matches_jax_grad(case):
     """The table gradient of the port's sample_dense_multi (on the CPU: the
     autograd of the plain version, two index_add_) against jax.vjp of the
-    reference's sample_dense_multi on its default route (the gather), with
+    reference's sample_dense_multi on its default route (the gather), at
+    widths 1-128, 1 to 2,049 rows, one table row taking every row, and
     wavelengths outside [360, 830] and at both clamp edges (830 nm gives
     i0 = K-2 and w = 1, 360 nm i0 = 0 and w = 0); and the explicit plain
     backward against that autograd."""
-    rng = np.random.default_rng(21)
-    c = 13
+    c, shape, lams = BACKWARD_JAX_CASES[case]
+    rng = np.random.default_rng(21 if case == "c13" else
+                                sorted(BACKWARD_JAX_CASES).index(case))
     tables = rng.normal(size=(471, c)).astype(np.float32)
-    lam = rng.uniform(350, 840, size=(256, 8)).astype(np.float32)
-    lam[0] = [360.0, 830.0, 829.5, 829.99, 360.2, 359.9, 830.1, 500.0]
+    edges = [360.0, 830.0, 829.5, 829.99, 360.2, 359.9, 830.1, 500.0]
+    if lams == "one_bin":
+        lam = rng.uniform(595, 596, size=shape).astype(np.float32)
+    else:
+        lam = rng.uniform(350, 840, size=shape).astype(np.float32)
+        flat = lam.reshape(-1)
+        if lams == "clamped":
+            out = rng.uniform(0, 1, flat.size) < 0.7
+            flat[out] = np.where(rng.uniform(0, 1, out.sum()) < 0.5,
+                                 rng.uniform(300, 360, out.sum()),
+                                 rng.uniform(830.01, 900, out.sum()))
+            flat[~out] = rng.choice(edges, (~out).sum())
+        m = min(flat.size, len(edges))
+        flat[:m] = edges[:m]
     cot = rng.normal(size=lam.shape + (c,)).astype(np.float32)
     _, vjp = jax.vjp(lambda t: jspec.sample_dense_multi(t, jnp.asarray(lam)),
                      jnp.asarray(tables))
@@ -176,7 +209,9 @@ def test_plain_backward_matches_jax_grad():
     tt = T(tables).requires_grad_(True)
     out = tspec.sample_dense_multi(tt, T(lam))
     (got,) = torch.autograd.grad(out, tt, T(cot))
-    assert np.abs(ref).max() > 1.0 and (ref[-1] != 0).any()
+    assert np.abs(ref).max() > (1.0 if lam.size > 8 else 0.0)
+    if case == "c13":
+        assert (ref[-1] != 0).any()
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
                                atol=1e-6 * np.abs(ref).max())
     i0, w, inside = tspec._dense_idx_frac(T(lam))
@@ -215,7 +250,10 @@ def test_dense_interp_backward_kernel_on_cuda(c, k):
     and at 1 and 128 (a column tile of 32 and four of them), K = 2 and
     471, ragged row counts, i0 at 0, at K-2 and outside (clamped), w at 0
     and 1; and the kernel run twice gives the same bits (it sums in a
-    fixed order, no atomics)."""
+    fixed order, no atomics). Then every row on one table row (the worst
+    skew), and one launch captured in a CUDA graph and replayed twice,
+    each replay and an eager launch after them giving the eager launch's
+    bits (the last cluster sets its ticket counter back to 0)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
     rng = np.random.default_rng(c * 1000 + k + 7)
@@ -241,6 +279,21 @@ def test_dense_interp_backward_kernel_on_cuda(c, k):
         plain = ik.dense_interp_backward_plain(g, i0, w, k)
         backward_close(grad, plain, g, i0, w, k)
         assert torch.equal(ik.dense_interp_backward(g, i0, w, k), grad)
+    skew = torch.full_like(i0, (k - 2) // 2)
+    out = ik.dense_interp_backward(g, skew, w, k)
+    backward_close(out, ik.dense_interp_backward_plain(g, skew, w, k), g,
+                   skew, w, k)
+    assert torch.equal(ik.dense_interp_backward(g, skew, w, k), out)
+    eager = ik.dense_interp_backward(g, i0, w, k)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ik.dense_interp_backward(g, i0, w, k)
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    assert torch.equal(ik.dense_interp_backward(g, i0, w, k), eager)
 
 
 @pytest.mark.cuda

@@ -16,16 +16,39 @@ def cs(monkeypatch):
     return _smoke_on_host_clock(monkeypatch)
 
 
-def test_backward_case_holds_the_plain_backward(cs, capsys):
+@pytest.mark.parametrize("case", ["seeded", "one_table_row", "edges"])
+def test_backward_case_holds_the_plain_backward(cs, capsys, case):
+    """Phase 9b's case helper on CPU tensors: seeded rows, every row on
+    table row 235 (case e), and case f's rows (edge_rows: i0 at 0, at K-2
+    and outside the table, w at 0 and 1)."""
     rng = np.random.default_rng(1)
     n, c, k = 5000, 13, 471
     i0 = torch.tensor(rng.integers(0, k - 1, n).astype(np.int32))
     w = torch.tensor(rng.uniform(0, 1, n).astype(np.float32))
-    row = cs.interp_backward_case("cpu", cs.seeded_gradient(n, c, 3, "cpu"),
-                                  i0, w, k)
+    g = cs.seeded_gradient(n, c, 3, "cpu")
+    if case == "one_table_row":
+        i0 = torch.full_like(i0, 235)
+    elif case == "edges":
+        g, i0, w, k = cs.edge_rows(4099, c, k, 4, "cpu")
+        assert g.shape == (4099, c) and (i0 < 0).any() and (i0 > k - 2).any()
+        assert (i0 == 0).sum() > 800 and (i0 == k - 2).sum() > 800
+        assert (w == 0).any() and (w == 1).any()
+    row = cs.interp_backward_case(case, g, i0, w, k)
     assert row["max_abs_err"] == 0.0 and row["run_to_run_bitwise"]
     assert row["bound_by"] == "bytes" and row["library_max_abs_diff"] < 1e-2
-    assert '"case": "cpu"' in capsys.readouterr().out
+    assert "plan" not in row
+    assert f'"case": "{case}"' in capsys.readouterr().out
+
+
+def test_sensor_rows_are_the_apps_sensor_lookups():
+    """Phase 9's case d input: phase 21's 2,048 visible wavelengths (256
+    stratified u, 8 hero wavelengths each) as (i0, w) of the dense grid."""
+    import chip_smoke as cs
+    i0, w = cs.sensor_rows(2048, "cpu")
+    assert i0.dtype == torch.int32 and i0.shape == w.shape == (2048,)
+    assert int(i0.min()) >= 0 and int(i0.max()) <= 469
+    assert float(w.min()) >= 0.0 and float(w.max()) <= 1.0
+    assert len(torch.unique(i0)) > 350
 
 
 def test_training_phases_run_on_cpu(cs, capsys):
