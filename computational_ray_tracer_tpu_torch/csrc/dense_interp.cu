@@ -305,24 +305,28 @@ constexpr int kMaxTiles = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
 // How a chunk's g is staged: one bulk (TMA) copy of its span when a tile
-// is the whole row, 16-byte cp.async of each row's tile (bulk copies of
-// 128-byte rows measured 3x slower at 2^21 x 128), or 4-byte cp.async
-// (inputs not 16-byte aligned). i0 and w go by bulk copies when aligned.
+// is the whole row, 16-byte cp.async of each row's tile (one bulk copy a
+// 128-byte row measured slower), or 4-byte cp.async (inputs not 16-byte
+// aligned). i0 and w go by bulk copies when aligned.
 enum CopyMode { kCopySpan = 0, kCopyRows = 1, kCopyScalar = 2 };
 
 // One counter a column tile; the last cluster of a launch sets it back to
 // 0, so it is 0 at every launch.
 __device__ unsigned int g_bwd_tickets[kMaxTiles];
 
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
                "l"(src));
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
                "l"(src));
 }
 
@@ -332,10 +336,6 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void mbar_init(unsigned long long* bar) {
@@ -431,7 +431,7 @@ __device__ __forceinline__ void stage_chunk(
 // entry, whose 5-bit digit is d, among the block's T entries.
 // The warp's five ballots give every lane the peers of any digit: lane x
 // writes the count of digit x into cnt[warp][x], and after one barrier each
-// warp sums the 16 warps' counts itself (no second barrier for a scan).
+// warp sums the T / 32 warps' counts itself (no second barrier for a scan).
 // The caller's barrier after its scatter ends the pass (cnt is reused).
 template <int T>
 __device__ __forceinline__ int radix_position(int d, int* cnt) {
@@ -494,11 +494,11 @@ dense_interp_backward_kernel(const float* __restrict__ g, int k, int c,
   int* const ibuf = reinterpret_cast<int*>(gbuf + 2 * buf_floats);
   float* const wbuf = reinterpret_cast<float*>(ibuf + 2 * chunk);
   int* const buf1 = reinterpret_cast<int*>(wbuf + 2 * chunk);   // [T]
-  int2* const srt = reinterpret_cast<int2*>(buf1 + T);  // [T]
-  int* const cnt = reinterpret_cast<int*>(srt + T);    // [T]
-  int* const gstart = cnt + T;                     // [T + 1]
-  float* const carry0 = reinterpret_cast<float*>(gstart + T + 4);
-  float* const carry1 = carry0 + T;
+  int2* const srt = reinterpret_cast<int2*>(buf1 + T);          // [T]
+  int* const cnt = reinterpret_cast<int*>(srt + T);             // [T]
+  int* const gstart = cnt + T;                                  // [T + 1]
+  float* const carry0 = reinterpret_cast<float*>(gstart + T + 4);  // [T]
+  float* const carry1 = carry0 + T;                                // [T]
 
   for (int j = tid; j < k * wd; j += T) table[j] = 0.0f;
   const long long first = static_cast<long long>(blockIdx.x) * rows_per_block;
@@ -518,7 +518,7 @@ dense_interp_backward_kernel(const float* __restrict__ g, int k, int c,
   __syncthreads();
   if (chunks > 0) {
     stage_chunk<T>(&bars[0], gbuf, ibuf, wbuf, g, i0, w, row0,
-                min(chunk, row_end - row0), c, c0, wd, mode);
+                   min(chunk, row_end - row0), c, c0, wd, mode);
   }
   // A run's w sum that goes into table row defer_row after the next barrier
   // (another thread may add into that cell before it).
@@ -534,8 +534,8 @@ dense_interp_backward_kernel(const float* __restrict__ g, int k, int c,
     if (ci + 1 < chunks) {
       const int q1 = q0 + chunk;
       stage_chunk<T>(&bars[b ^ 1], gbuf + (b ^ 1) * buf_floats,
-                  ibuf + (b ^ 1) * chunk, wbuf + (b ^ 1) * chunk, g, i0, w,
-                  q1, min(chunk, row_end - q1), c, c0, wd, mode);
+                     ibuf + (b ^ 1) * chunk, wbuf + (b ^ 1) * chunk, g, i0,
+                     w, q1, min(chunk, row_end - q1), c, c0, wd, mode);
     }
     if (defer_row >= 0) {
       add_to(&table[defer_row * wd + col], defer_s1);
@@ -658,7 +658,8 @@ dense_interp_backward_kernel(const float* __restrict__ g, int k, int c,
   if (nc == 1) return;
   if (rank == 0 && tid == 0) {
     __threadfence();
-    s_last = atomicAdd(&g_bwd_tickets[tile], 1u) == static_cast<unsigned>(nc - 1);
+    s_last = atomicAdd(&g_bwd_tickets[tile], 1u) ==
+             static_cast<unsigned>(nc - 1);
   }
   cluster.sync();
   const int last = *cluster.map_shared_rank(&s_last, 0);
@@ -668,7 +669,9 @@ dense_interp_backward_kernel(const float* __restrict__ g, int k, int c,
   for (int e = e0 + tid; e < e1; e += T) {
     const float* const src = part + e;
     float s = __ldcg(src);
-    for (int q = 1; q < nc; ++q) s = __fadd_rn(s, __ldcg(src + q * table_stride));
+    for (int q = 1; q < nc; ++q) {
+      s = __fadd_rn(s, __ldcg(src + q * table_stride));
+    }
     const int j = e / wd;
     grad[static_cast<size_t>(j) * c + c0 + (e - j * wd)] = s;
   }

@@ -30,6 +30,8 @@ they stand in for a gather, which the card does natively, in float32.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from computational_ray_tracer_tpu_torch.ops.mesh_intersect_kernel import (
@@ -112,10 +114,8 @@ def backward_plan(k, c, n):
     """The backward kernel's launch plan for a (k, c) table and n rows, as
     a dict of PLAN_FIELDS (needs the kernel library, so a card); None if
     the kernel cannot take the shape."""
-    import ctypes
     from computational_ray_tracer_tpu_torch.kernels import build
-    lib = build.load_library()
-    fn = lib.crt_dense_interp_backward_plan
+    fn = build.load_library().crt_dense_interp_backward_plan
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_longlong * len(PLAN_FIELDS))()
