@@ -154,7 +154,11 @@ failed check raises, so the script exits non-zero:
    512x512, path/MIS depth 4, with both octree modes and the
    interpolation kernel launched, against the same mesh built in memory
    (2e-3*max; bitwise equality reported); load, octree-build and pass
-   times;
+   times. The scene file is loaded twice with the octree cache in a
+   temporary directory: cold (one build, stored) and warm (read back, no
+   build); the two trees and their packed tables bitwise equal, one
+   pass of each scene bitwise equal with both octree modes launched, both
+   load times printed;
 21. the eight validation apps (spectrum_color, filter_film_test,
    sampler_test, montecarlo_test, polygon_app, crossbridge, ode_app,
    plotter_demo) at their defaults on the card, each into a temporary
@@ -173,11 +177,24 @@ failed check raises, so the script exits non-zero:
    table at 256 x 8 wavelengths), and each of its card launches is then
    held bitwise to the plain version on the very tensors it took; each
    app's card and CPU seconds;
-13. (printed after 21) a JSON line of the kernels, with a row for each
+22. the reference's call forms on the card: alive_fractions of the Cornell
+   headline (512x512, path/MIS depth 4; both brute-force modes and the
+   interpolation kernel launched) and its effective rays/s from phase 4's
+   s/pass (1 + the alive fractions of depths 1..D-1 + those of depths
+   0..D-1 rays a sample, as bench.py counts them); li_path,
+   li_simple_path and li_random_walk bitwise _path_scan's output in their
+   modes; sample_light and env_radiance with the wavelengths alone
+   bitwise the spectral cache's route; alive_fractions of the mesh
+   headline (both octree modes launched); every launch of these counted
+   runs held to its kernel's plain version as in phases 4b, 10b and 21;
+   then alive_fractions on the card within ALIVE_RAYS rays a depth of the
+   CPU's at API_CPU_RES (Cornell in the path, simple and walk modes, the
+   mesh headline);
+13. (printed after 22) a JSON line of the kernels, with a row for each
    brute-force mode, each launch of 4b, each launch of 10b and 12b, the
    interpolation kernel and each case of its backward (9b); the rows of
    both brute-force modes, both octree modes and the interpolation
-   kernel also carry their launches in phases 18-21 (launches_by_phase)
+   kernel also carry their launches in phases 18-22 (launches_by_phase)
    (CUDA-event medians: of 5 for
    the kernels, of 3 for the plain versions and the brute kernel at full
    mesh size, one run of the plain traversal in 10b and 12b; the brute
@@ -211,6 +228,7 @@ from computational_ray_tracer_tpu_torch.apps import shape_test as st_app
 from computational_ray_tracer_tpu_torch.kernels import build
 from computational_ray_tracer_tpu_torch.models import integrator as integ
 from computational_ray_tracer_tpu_torch.models import inverse as inv
+from computational_ray_tracer_tpu_torch.models import lights as lgt
 from computational_ray_tracer_tpu_torch.models import scene as scene_mod
 from computational_ray_tracer_tpu_torch.ops import camera as cam
 from computational_ray_tracer_tpu_torch.ops import interp_kernel as ik
@@ -223,7 +241,8 @@ from computational_ray_tracer_tpu_torch.ops import film as filmmod
 from computational_ray_tracer_tpu_torch.ops import triangle as trimod
 from computational_ray_tracer_tpu_torch.parallel import sharding as par
 from computational_ray_tracer_tpu_torch.utils import (
-    checkpoint, config as cfgmod, image, mesh_gen, obj_loader, ply_loader)
+    asset_cache, checkpoint, config as cfgmod, image, mesh_gen, obj_loader,
+    ply_loader)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "computational_ray_tracer_tpu_torch/csrc/"
@@ -306,6 +325,13 @@ SCENE_FILE_SPEC = {
                {"kind": "ambient", "spd_named": "stdillum-D65",
                 "scale": 0.15}],
 }
+
+# 22: alive_fractions on the card against the CPU port's at a reduced size
+# (the rays apart at each depth: a camera ray that meets an edge or a
+# grazing bounce may go either way on the two devices).
+API_CPU_RES = {"cornell": 64, "mesh": 48}
+ALIVE_RAYS = 2
+ALIVE_MODES = ("path", "simple", "walk")
 
 # 21: the validation apps, card against CPU. Entries the apps round to 4
 # decimals may round 1e-4 apart from values within APP_ATOL.
@@ -544,7 +570,7 @@ def octree_bound(packed, t_max, tests, pops, out_words):
 
 def plain_traverse(packed, o, d, t_max):
     return octmod.octree_traverse(o, d, t_max, packed.tree, packed.tri_verts,
-                                  packed.tri_mask)
+                                  packed.tri_mask, pops=True)
 
 
 def plain_ray_set(packed, o, d, t_max):
@@ -659,7 +685,7 @@ def octree_phase(dev):
     gen_s = time.perf_counter() - t0
     dmesh = trimod.MeshData.build(v, f, uvs=uv, device=dev)
     t0 = time.perf_counter()
-    dtree = octmod.build_octree(v, f, 160)
+    dtree = octmod.build_host_octree(v, f, 160)
     build_s = time.perf_counter() - t0
     dpacked = okern.pack_from_numpy(dtree, dmesh)
     dcam = cam.PerspectiveCamera.create((0, 12, -52), (HEADLINE_RES,) * 2,
@@ -1603,7 +1629,7 @@ def edge_pixels(scene, camera, cfg, sample_idx):
     Cornell box's edges)."""
     _, _, _, o, d = integ.camera_wavefront(
         camera, cfg, integ.make_filter(cfg), sample_idx, scene.device)
-    _, kind, _, b1, b2 = scene_mod.scene_intersect_t(
+    _, kind, _, b1, b2, _ = scene_mod.scene_intersect_t(
         scene, o, d, torch.full_like(o[:, 0], float("inf")))
     b = torch.stack([1.0 - b1 - b2, b1, b2], -1).amin(-1)
     w, h = cfg.resolution
@@ -1834,13 +1860,7 @@ def scene_file_phase(dev, card, subdiv=7, dragon_tris=870_000, res=512,
     the CPU tests."""
     t_phase = time.perf_counter()
     times = {}
-
-    def clock(key, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        sync(dev)
-        times[key] = time.perf_counter() - t0
-        return out
+    clock = lambda key, fn: clock_into(times, key, dev, fn)
 
     with tempfile.TemporaryDirectory() as tmp:
         obj, ply = os.path.join(tmp, "mesh.obj"), os.path.join(tmp, "d.ply")
@@ -1882,11 +1902,21 @@ def scene_file_phase(dev, card, subdiv=7, dragon_tris=870_000, res=512,
         path = os.path.join(tmp, "scene.json")
         with open(path, "w") as fh:
             json.dump(spec, fh)
-        with wrapped(octmod, "build_octree",
-                     after=lambda s: times.__setitem__("build_octree_s", s)):
-            scene, camera, cfg = clock(
-                "load_scene_file_s", lambda: cfgmod.load_scene_file(path, dev))
+        scene, warm, camera, cfg, cache = cached_loads(path, dev, times)
     assert scene.packed_octree is not None
+    zero_counts()
+    one_pass = lambda s: integ.render_pass(s, camera, cfg,
+                                           integ.make_filter(cfg),
+                                           sen.PixelSensor.create(), 0)
+    cold_pass, warm_pass = one_pass(scene), one_pass(warm)
+    cache["pass_launches"] = read_counts()
+    assert all(torch.equal(a, b) for a, b in zip(cold_pass, warm_pass)), \
+        "phase20: the cached tree's pass differs from the built tree's"
+    assert torch.device(dev).type != "cuda" or min(
+        cache["pass_launches"]["octree_closest"],
+        cache["pass_launches"]["octree_anyhit"]) >= 2, cache
+    cache["passes_bitwise"] = True
+    del warm, cold_pass, warm_pass
     zero_counts()
     film, sensor = clock("render_s", lambda: integ.render(scene, camera,
                                                           cfg))
@@ -1909,6 +1939,7 @@ def scene_file_phase(dev, card, subdiv=7, dragon_tris=870_000, res=512,
     print("phase20", json.dumps({
         "triangles": len(f), "dragon_triangles": len(df), "res": res,
         "passes": passes, "depth": cfg.max_depth, **times,
+        "octree_cache": cache,
         "s_per_pass": times["render_s"] / passes,
         "octree": scene.octree.info(), "launches": launches,
         "max_abs_diff_vs_in_memory": err, "atol": atol,
@@ -1918,6 +1949,58 @@ def scene_file_phase(dev, card, subdiv=7, dragon_tris=870_000, res=512,
         "image_mean": float(img.mean()),
         "phase_s": time.perf_counter() - t_phase, "card": card}), flush=True)
     return launches
+
+
+def cached_loads(path, dev, times):
+    """Phase 20's two loads of the scene file with the octree cache in a
+    temporary directory: a cold load that builds and stores the tree, then
+    a warm one that reads it (no build). Both trees equal, array for array
+    and in the packed tables. Returns (cold scene, warm scene, camera,
+    cfg, a row of the builds and the cache's files)."""
+    builds = []
+
+    def load(key, build_key):
+        with wrapped(octmod, "build_host_octree", after=lambda s:
+                     times.__setitem__(build_key, s)):
+            return clock_into(times, key, dev,
+                              lambda: cfgmod.load_scene_file(path, dev))
+
+    keep = asset_cache._CACHE_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        asset_cache._CACHE_DIR = tmp
+        try:
+            with wrapped(octmod, "_split_oversized_leaves",
+                         before=lambda *a: builds.append(1)):
+                scene, camera, cfg = load("load_scene_file_s",
+                                          "build_octree_s")
+                cold_builds = len(builds)
+                warm, _, _ = load("load_scene_file_warm_s",
+                                  "build_octree_warm_s")
+            files = sorted(os.listdir(tmp))
+        finally:
+            asset_cache._CACHE_DIR = keep
+    assert cold_builds == 1 and len(builds) == 1, \
+        f"phase20: {len(builds)} builds for a cold and a warm load"
+    assert len(files) == 1 and files[0].startswith("torch_octree_"), files
+    fields = lambda s: [getattr(s.octree, k) for k in octmod.TREE_FIELDS]
+    assert _equal_arrays(fields(scene), fields(warm)), \
+        "phase20: the cached tree differs from the built one"
+    assert all(torch.equal(getattr(scene.packed_octree, k),
+                           getattr(warm.packed_octree, k))
+               for k in ("nodes", "leaf_verts", "row_tri")), \
+        "phase20: the cached tree packs differently"
+    return scene, warm, camera, cfg, {
+        "builds_cold": cold_builds, "builds_warm": len(builds) - cold_builds,
+        "files": files, "trees_bitwise": True}
+
+
+def clock_into(times, key, dev, fn):
+    """fn()'s output, its host seconds to a sync written to times[key]."""
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    times[key] = time.perf_counter() - t0
+    return out
 
 
 def _close(got, want, rtol, atol, what):
@@ -2123,6 +2206,151 @@ def apps_phase(dev, card, sizes=None):
         "pngs_a_side": sum(len(plots["card", n]) for n in VALIDATION_APPS),
         "phase_s": time.perf_counter() - t_phase, "card": card}),
         flush=True)
+    return launches
+
+
+def held_to_plain(calls):
+    """Each captured launch of phase 22 against its kernel's plain version,
+    as phases 4b, 10b and 21 hold them (after the counts are read): the
+    brute kernel and the interpolation kernel bitwise, the octree kernel's
+    any hit exactly and its closest hit by hits_agree over the live rays.
+    Returns {kernel: {"launches": checked, "max_abs_err": ...}}."""
+    out = {}
+
+    def note(name, err):
+        row = out.setdefault(name, {"launches": 0, "max_abs_err": 0.0})
+        row["launches"] += 1
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+
+    for kind, call in calls:
+        if kind == "interp":
+            note("dense_interp", interp_launch_checks([call])["max_abs_err"])
+            continue
+        mode, rays, *rest = call
+        if kind == "brute":
+            row = mesh_launch_row("phase22_brute_" + mode, mode, rays, *rest)
+            name = "mesh_intersect" if mode == "closest" else "mesh_anyhit"
+        else:
+            row = octree_launch_row("phase22_octree_" + mode, rest[0], mode,
+                                    rays)
+            name = "octree_" + mode
+        note(name, row["max_abs_err"])
+    return out
+
+
+def capture_all(fn):
+    """Run ``fn()`` and return its output and the inputs of every kernel
+    launch it makes: [(kind, call)] with kind "brute", "octree" or
+    "interp"."""
+    interp, box = [], {}
+    with wrapped(ik, "dense_interp", before=lambda *a: interp.append(
+            tuple(x.clone() for x in a))):
+        brute = capture_mesh_launches(lambda: box.update(
+            octree=capture_octree_launches(lambda: box.update(out=fn()))))
+    return box["out"], ([("brute", c) for c in brute]
+                        + [("octree", c) for c in box["octree"]]
+                        + [("interp", c) for c in interp])
+
+
+def alive_vs_cpu(name, setup, dev, modes):
+    """alive_fractions on the card and on the CPU at a reduced size, within
+    ALIVE_RAYS rays a depth; returns the rays apart for each mode."""
+    apart = {}
+    scenes = {d: setup(d) for d in (dev, "cpu")}
+    for mode in modes:
+        fr = {d: integ.alive_fractions(sc, cam_, dataclasses.replace(
+            cfg, integrator=mode)).cpu() for d, (sc, cam_, cfg)
+            in scenes.items()}
+        w, h = scenes["cpu"][2].resolution
+        rays = ((fr[dev] - fr["cpu"]).abs() * w * h).tolist()
+        assert max(rays) <= ALIVE_RAYS, \
+            f"phase22 {name} {mode}: {rays} rays apart a depth"
+        apart[mode] = rays
+    return apart
+
+
+def api_phase(dev, card, headline_s_pass, res=HEADLINE_RES,
+              spp=HEADLINE_SPP, cpu_res=None, subdiv=7):
+    """Phase 22 (see the module docstring); the arguments cut it down for
+    the CPU tests. Returns the launches of its counted runs."""
+    t_phase = time.perf_counter()
+    cpu_res = cpu_res or API_CPU_RES
+    launches, calls, row = {}, [], {"res": res}
+    card_run = torch.device(dev).type == "cuda"
+
+    def counted(key, fn):
+        zero_counts()
+        out, c = capture_all(fn)
+        sync(dev)
+        n = read_counts()
+        row[key + "_launches"] = n
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        calls.extend(c)
+        return out
+
+    # (a) the Cornell headline's fractions and its effective rays/s
+    scene, camera, cfg = entry.cornell_setup(res, spp, dev)
+    fr = counted("cornell", lambda: integ.alive_fractions(scene, camera,
+                                                          cfg)).cpu()
+    depth = cfg.max_depth
+    eff = 1.0 + float(fr[1:depth].sum()) + float(fr[:depth].sum())
+    n = row["cornell_launches"]
+    assert not card_run or min(n["brute_closest"], n["brute_anyhit"],
+                               n["interp"]) > 0, n
+    row.update(cornell_alive_fractions=fr.tolist(),
+               effective_rays_per_sample=eff,
+               nominal_rays_per_sample=1 + (depth - 1) + depth,
+               s_per_pass=headline_s_pass,
+               effective_rays_per_s=res * res * eff / headline_s_pass)
+    # (b) the li_* integrators: _path_scan's bits in their modes
+    pixel, wl, _, o, d = integ.camera_wavefront(
+        camera, cfg, integ.make_filter(cfg), 0, dev)
+    for name, mode in (("li_path", "mis"), ("li_simple_path", "simple"),
+                       ("li_random_walk", "walk")):
+        L, wl_out = getattr(integ, name)(scene, o, d, wl, pixel, 0, cfg)
+        ref = integ._path_scan(scene, o, d, wl, pixel, 0, cfg, mode)
+        assert torch.equal(L, ref[0]) and torch.equal(wl_out.pdf,
+                                                      ref[1].pdf), name
+    row["li_bitwise"] = True
+    # (c) sample_light and env_radiance with lam: the cache's bits
+    lights, lam = scene.lights, wl.lam
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p, nrm = (torch.rand(o.shape, device=dev, generator=gen) * 2 - 1
+              for _ in range(2))
+    nrm = nrm / nrm.norm(dim=-1, keepdim=True)
+    u = torch.rand(o.shape[:-1] + (3,), device=dev, generator=gen)
+    args = (lights, p, nrm, lam, u[..., 0], u[..., 1:], scene.world_radius())
+    got = counted("sample_light", lambda: lgt.sample_light(*args))
+    cache = integ._spectral_cache(scene, lam)[..., :lights.n_lights]
+    want = lgt.sample_light(*args, spd_vals=cache)
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+        "phase22: sample_light with lam differs from the spectral cache's"
+    assert torch.equal(lgt.env_radiance(lights, lam)[0],
+                       lgt.env_radiance(lights, lam, cache)[0])
+    assert not card_run or row["sample_light_launches"]["interp"] > 0
+    row["sample_light_bitwise"] = True
+    del scene, o, d, p, nrm, u, got, want, cache
+    # (d) the mesh headline's fractions (the octree kernel)
+    m_scene, m_camera, m_cfg = entry.mesh327k_setup(res, MESH_SPP, subdiv,
+                                                    device=dev)
+    m_fr = counted("mesh", lambda: integ.alive_fractions(m_scene, m_camera,
+                                                         m_cfg)).cpu()
+    n = row["mesh_launches"]
+    assert not card_run or min(n["octree_closest"], n["octree_anyhit"]) > 0, n
+    row["mesh_alive_fractions"] = m_fr.tolist()
+    del m_scene
+    # (e) every launch held to its plain version, then the CPU's fractions
+    row["held_to_plain"] = held_to_plain(calls)
+    del calls
+    row["cornell_rays_apart_vs_cpu"] = alive_vs_cpu(
+        "cornell", lambda d: entry.cornell_setup(cpu_res["cornell"], 1, d),
+        dev, ALIVE_MODES)
+    row["mesh_rays_apart_vs_cpu"] = alive_vs_cpu(
+        "mesh", lambda d: entry.mesh327k_setup(cpu_res["mesh"], 1, subdiv,
+                                               device=d), dev, ("direct",))
+    row.update(phase_s=time.perf_counter() - t_phase, card=card)
+    print("phase22", json.dumps(row), flush=True)
     return launches
 
 
@@ -2339,6 +2567,8 @@ def main():
                     "19": shape_phase(dev, card),
                     "20": scene_file_phase(dev, card),
                     "21": apps_phase(dev, card)}
+    # phase 22: the reference's call forms on the card
+    app_launches["22"] = api_phase(dev, card, headline_s_pass)
     by_phase = lambda key: {"launches_by_phase": {
         p: n[key] for p, n in app_launches.items() if n[key]}}
 

@@ -16,3 +16,6 @@ the spectral, colour, sampling and Monte Carlo tools, 2D geometry
 (``geometry2d/``), the simulations (``models/simulation.py``) and the ten
 apps (``apps/``).
 """
+
+from computational_ray_tracer_tpu_torch.ops import (  # noqa: E402,F401
+    color, rng, sampling, spectrum)

@@ -331,8 +331,8 @@ def canonical_pass(scene, camera, cfg, sensor, sample_idx):
     dev = scene.device
     pixel, wl, fw, o, d = integ.camera_wavefront(
         camera, cfg, integ.make_filter(cfg), int(sample_idx), dev)
-    si, _ = scene_intersect(scene, o, d,
-                            torch.full_like(o[..., 0], float("inf")))
+    si, _, _ = scene_intersect(scene, o, d,
+                               torch.full_like(o[..., 0], float("inf")))
     f1, white, gray = _canonical_spectra(str(dev))
     light_wi = torch.tensor(CANONICAL_LIGHT_WI, device=dev)
     cosw = torch.clamp(torch.sum(si.n * light_wi, dim=-1), 0.0, 1.0)

@@ -61,9 +61,10 @@ def visibility_polygon(polygon: Polygon, guard, eps=1e-4, device="cuda"):
     return Polygon(pts[keep])
 
 
-def is_visible(polygon: Polygon, p, q):
+def is_visible(polygon: Polygon, p, q, n_checks=32):
     """Are p and q mutually visible inside the polygon: no proper crossing
-    of the boundary and the midpoint inside."""
+    of the boundary and the midpoint inside. ``n_checks`` is unused, as in
+    the reference."""
     v = _f32(polygon.v)
     crossing = seg.segments_intersect(_f32(p)[None, :], _f32(q)[None, :], v,
                                       torch.roll(v, -1, dims=0),

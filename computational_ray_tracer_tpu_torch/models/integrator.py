@@ -28,9 +28,14 @@ spectral cache's interpolation kernel has a backward kernel.
 ``render_pass_compact`` bounces only the alive rays from depth 1 on. Every
 sample is keyed by (pixel, sample, dim) and a dead ray's state no longer
 changes, so its image is the full wavefront's. ``render()`` runs the full
-wavefront: on the H100 each eager bounce is bound by its kernel launches,
-so gathering the alive rays only adds launches and a sync
+wavefront unless ``cfg.compact`` asks for compaction, as in the reference:
+on the H100 each eager bounce is bound by its kernel launches, so
+gathering the alive rays only adds launches and a sync
 (``tools/compare_compaction.py``, PERF.md).
+
+``alive_fractions`` gives the per-depth alive share of one pass for
+effective-ray counts, and ``li_path``, ``li_simple_path`` and
+``li_random_walk`` run the bounce loop in one mode, as the reference's.
 """
 
 from __future__ import annotations
@@ -130,6 +135,11 @@ class RenderConfig:
     lambda_mode: str = "visible"            # visible | uniform
     sensor_name: Any = None                 # None: the XYZ sensor
     clamp: float = 0.0                      # 0: no firefly clamp
+    ray_eps: float = 1e-3                   # unused, as in the reference
+    # render() runs each pass through render_pass_compact (the same values);
+    # compact_quantum is the reference's TPU bucket size and changes nothing.
+    compact: bool = False
+    compact_quantum: int = 1024
 
     def __post_init__(self):
         if self.integrator not in ("path", "simple", "direct", "walk"):
@@ -189,8 +199,8 @@ def li_direct(scene, o, d, wl, pixel, sample_idx, cfg):
     """Single-bounce direct lighting: front-face emission at the camera
     hit plus one light sample, f * Li * cos / pdf, behind a shadow ray.
     Camera rays that miss carry dead shadow rays."""
-    si, mid = scene_intersect(scene, o, d,
-                              torch.full_like(o[..., 0], float("inf")))
+    si, mid, _ = scene_intersect(scene, o, d,
+                                 torch.full_like(o[..., 0], float("inf")))
     mrow = mat.MaterialView.create(scene.materials, mid)
     lights = scene.lights
     n_l = lights.n_lights
@@ -206,10 +216,11 @@ def li_direct(scene, o, d, wl, pixel, sample_idx, cfg):
     u_sel = s.get_1d(pixel, sample_idx, DIM_BOUNCE0)
     u_pos = s.get_2d(pixel, sample_idx, DIM_BOUNCE0 + 1)
     wi, dist, li_val, pdf, _ = lgt.sample_light(
-        lights, si.p, si.n, u_sel, u_pos, svals[..., :n_l],
-        scene.world_radius())
-    f, _ = mat.bsdf_eval(mrow, si.n, si.wo, wi, wl.lam, (eta_s, k_s),
-                         _tex_coeffs(scene, si), enable_rough=scene.has_rough)
+        lights, si.p, si.n, wl.lam, u_sel, u_pos, scene.world_radius(),
+        spd_vals=svals[..., :n_l])
+    f, _ = mat.bsdf_eval(mrow, si.n, si.wo, wi, wl.lam,
+                         _tex_coeffs(scene, si), (eta_s, k_s),
+                         enable_rough=scene.has_rough)
     cos_i = torch.clamp(torch.sum(wi * si.n, dim=-1), min=0.0)
     dist = torch.where(si.valid, dist, -torch.ones_like(dist))
     occluded = scene_occluded(scene, si.p, wi, dist, spawn_eps(si, cfg),
@@ -236,13 +247,14 @@ def _init_path_state(scene, o, d, wl):
         svals=_spectral_cache(scene, wl.lam))
 
 
-def _bounce_step(scene, cfg, state, depth, pixel, sample_idx):
-    """One bounce of the wavefront in the mode of ``cfg.integrator``:
-    closest hit; environment and emission (``mis``: weighted against the
-    light pdf; ``simple``: on camera/specular prefixes only; ``walk``:
-    always); next-event estimation with a shadow ray (``mis``, ``simple``);
-    BSDF sampling and Russian roulette. Returns the new state."""
-    mode = _MODES[cfg.integrator]
+def _bounce_step(scene, cfg, state, depth, pixel, sample_idx, mode=None):
+    """One bounce of the wavefront in ``mode`` (None: the mode of
+    ``cfg.integrator``): closest hit; environment and emission (``mis``:
+    weighted against the light pdf; ``simple``: on camera/specular prefixes
+    only; ``walk``: always); next-event estimation with a shadow ray
+    (``mis``, ``simple``); BSDF sampling and Russian roulette. Returns the
+    new state."""
+    mode = mode or _MODES[cfg.integrator]
     s = cfg.sampler
     o, d = state["o"], state["d"]
     alive = state["alive"]
@@ -255,7 +267,7 @@ def _bounce_step(scene, cfg, state, depth, pixel, sample_idx):
 
     t_max = torch.where(alive, torch.full_like(o[..., 0], float("inf")),
                         torch.full_like(o[..., 0], -1.0))
-    si, mid = scene_intersect(scene, o, d, t_max)
+    si, mid, _ = scene_intersect(scene, o, d, t_max)
     hit = si.valid & alive
     mrow = mat.MaterialView.create(scene.materials, mid)
     tex = _tex_coeffs(scene, si)
@@ -266,7 +278,7 @@ def _bounce_step(scene, cfg, state, depth, pixel, sample_idx):
     light_vals = svals[..., :n_l]
 
     miss = alive & ~si.valid
-    L_env = lgt.env_radiance(lights, light_vals)
+    L_env, _ = lgt.env_radiance(lights, lam, spd_vals=light_vals)
     one = torch.ones_like(state["pdf_prev"])
     if mode == "mis":
         pdf_amb = lgt.pdf_ambient_direction(lights, state["n_prev"], d)
@@ -305,10 +317,10 @@ def _bounce_step(scene, cfg, state, depth, pixel, sample_idx):
         u_sel = s.get_1d(pixel, sample_idx, dim0 + 3)
         u_pos = s.get_2d(pixel, sample_idx, dim0 + 4)
         wi_l, dist, li_val, pdf_l, lkind = lgt.sample_light(
-            lights, si.p, si.n, u_sel, u_pos, light_vals,
-            scene.world_radius())
-        f, pdf_b = mat.bsdf_eval(mrow, si.n, si.wo, wi_l, lam, (eta_s, k_s),
-                                 tex, enable_rough=scene.has_rough)
+            lights, si.p, si.n, lam, u_sel, u_pos, scene.world_radius(),
+            spd_vals=light_vals)
+        f, pdf_b = mat.bsdf_eval(mrow, si.n, si.wo, wi_l, lam, tex,
+                                 (eta_s, k_s), enable_rough=scene.has_rough)
         cos_l = torch.clamp(torch.sum(wi_l * si.n, dim=-1), min=0.0)
         occ = scene_occluded(scene, si.p, wi_l,
                              torch.where(hit, dist, -torch.ones_like(dist)),
@@ -327,7 +339,8 @@ def _bounce_step(scene, cfg, state, depth, pixel, sample_idx):
     u2 = s.get_2d(pixel, sample_idx, dim0)
     u1 = s.get_1d(pixel, sample_idx, dim0 + 2)
     wi, w_bsdf, pdf_bsdf, is_spec, term_2nd = mat.bsdf_sample(
-        mrow, si.n, si.wo, u2, u1, lam, (eta_s, k_s), si.backface, tex,
+        mrow, si.n, si.wo, u2, u1, lam, tex_rgb_coeffs=tex,
+        eta_k=(eta_s, k_s), backface=si.backface,
         enable_rough=scene.has_rough)
     beta_new = beta * w_bsdf
     # dispersion: collapse secondary wavelengths at dielectric bounces
@@ -364,13 +377,59 @@ def _bounce_step(scene, cfg, state, depth, pixel, sample_idx):
         lam=lam, lam_pdf=lam_pdf, svals=svals)
 
 
-def _path_scan(scene, o, d, wl, pixel, sample_idx, cfg):
-    """The bounce loop of the multi-bounce integrators over
-    cfg.max_depth."""
+def _path_scan(scene, o, d, wl, pixel, sample_idx, cfg, mode=None,
+               counts=False):
+    """The bounce loop of the multi-bounce integrators over cfg.max_depth
+    in ``mode`` (None: the mode of ``cfg.integrator``): (L, wavelengths),
+    then, with ``counts``, the alive rays entering each depth (float32
+    (max_depth,), on the device; nothing is counted without it)."""
     state = _init_path_state(scene, o, d, wl)
+    alive = []
     for depth in range(cfg.max_depth):
-        state = _bounce_step(scene, cfg, state, depth, pixel, sample_idx)
-    return state["L"], spec.SampledWavelengths(wl.lam, state["lam_pdf"])
+        if counts:
+            alive.append(state["alive"].sum(dtype=torch.float32))
+        state = _bounce_step(scene, cfg, state, depth, pixel, sample_idx,
+                             mode)
+    out = state["L"], spec.SampledWavelengths(wl.lam, state["lam_pdf"])
+    return out + (torch.stack(alive),) if counts else out
+
+
+def alive_fractions(scene, camera, cfg: RenderConfig, sample_idx=0):
+    """Per-depth alive-ray fractions of one wavefront pass of pixel-centre
+    camera rays (no filter offset), as the reference's: the share of rays
+    that enter each bounce, for effective rays/s beside the nominal count.
+    The ``direct`` integrator is counted as path/MIS, as there."""
+    w, h = cfg.resolution
+    s = cfg.sampler
+    sample_idx = int(sample_idx)
+    pixel = torch.arange(w * h, dtype=torch.int64, device=scene.device)
+    px = (pixel % w).to(torch.float32)
+    py = (pixel // w).to(torch.float32)
+    wl = _sample_wavelengths(cfg, s.get_1d(pixel, sample_idx, DIM_LAMBDA))
+    o, d = camera.generate_rays(torch.stack([px + 0.5, py + 0.5], dim=-1),
+                                s.get_2d(pixel, sample_idx, DIM_LENS))
+    mode = {"walk": "walk", "simple": "simple"}.get(cfg.integrator, "mis")
+    with torch.no_grad():
+        counts = _path_scan(scene, o, d, wl, pixel, sample_idx, cfg, mode,
+                            counts=True)[2]
+    return counts / (w * h)
+
+
+def li_path(scene, o, d, wl, pixel, sample_idx, cfg):
+    """Path: NEE and BSDF-sampled emission under the power heuristic."""
+    return _path_scan(scene, o, d, wl, pixel, sample_idx, cfg, mode="mis")
+
+
+def li_simple_path(scene, o, d, wl, pixel, sample_idx, cfg):
+    """SimplePath: NEE at every vertex, emission found by the BSDF counted
+    on camera/specular prefixes only."""
+    return _path_scan(scene, o, d, wl, pixel, sample_idx, cfg,
+                      mode="simple")
+
+
+def li_random_walk(scene, o, d, wl, pixel, sample_idx, cfg):
+    """RandomWalk: BSDF sampling only, lights found by hitting them."""
+    return _path_scan(scene, o, d, wl, pixel, sample_idx, cfg, mode="walk")
 
 
 def make_filter(cfg: RenderConfig):
@@ -512,19 +571,29 @@ def render(scene, camera, cfg: RenderConfig, film=None, progress=None,
            passes=None, chunk=1):
     """Progressive render: cfg.sampler.spp passes accumulated into a Film.
     Resume from ``film`` (continues at ``film.spp_done``); ``passes`` stops
-    early; ``chunk`` passes are summed before each film update."""
+    early; ``chunk`` passes are summed before each film update. With
+    ``cfg.compact`` (and a multi-bounce integrator) each pass goes through
+    :func:`render_pass_compact`, one pass a film update, as the
+    reference's; the values are the full wavefront's."""
     filter_obj = make_filter(cfg)
     sensor = make_sensor(cfg)
     if film is None:
         film = filmmod.Film.create(cfg.resolution, device=scene.device)
+    use_compact = cfg.compact and cfg.integrator != "direct"
     start = int(film.spp_done)
     stop = cfg.sampler.spp if passes is None else min(cfg.sampler.spp,
                                                       start + passes)
     i = start
     while i < stop:
-        n = min(chunk, stop - i)
-        rgb_sum, wt_sum = render_passes(scene, camera, cfg, filter_obj,
-                                        sensor, i, n)
+        if use_compact:
+            n = 1
+            rgb, wt = render_pass_compact(scene, camera, cfg, filter_obj,
+                                          sensor, i)
+            rgb_sum, wt_sum = rgb * wt[..., None], wt
+        else:
+            n = min(chunk, stop - i)
+            rgb_sum, wt_sum = render_passes(scene, camera, cfg, filter_obj,
+                                            sensor, i, n)
         film = filmmod.Film(film.rgb_sum + rgb_sum, film.weight_sum + wt_sum,
                             film.spp_done + n)
         i += n

@@ -13,6 +13,7 @@ import torch
 from computational_ray_tracer_tpu_torch.ops import color as colorlib
 from computational_ray_tracer_tpu_torch.ops import spectra_data as data
 from computational_ray_tracer_tpu_torch.ops import sampling as smp
+from computational_ray_tracer_tpu_torch.ops import spectrum as spec
 from computational_ray_tracer_tpu_torch.models.materials import (build_frame,
                                                                  to_world)
 
@@ -91,12 +92,21 @@ def _dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
-def sample_light(table: LightTable, p, n, u_light, u_pos, spd_vals,
-                 world_radius=100.0):
+def light_spds(table: LightTable, lam):
+    """The light SPDs at the wavelengths ``lam`` (..., S): (..., S, L),
+    the lights' columns of the integrator's per-pass spectral cache."""
+    return spec.sample_dense_multi(table.spd.T, lam)
+
+
+def sample_light(table: LightTable, p, n, lam, u_light, u_pos,
+                 world_radius=100.0, spd_vals=None):
     """Next-event sample toward one uniformly chosen light per point.
-    ``spd_vals`` (..., S, L): the light SPDs at the hero wavelengths (the
-    integrator's per-pass spectral cache). Returns (wi, dist, Li (..., S),
+    ``spd_vals`` (..., S, L): the light SPDs at the hero wavelengths ``lam``
+    (the integrator's per-pass spectral cache); None interpolates them here
+    (:func:`light_spds`, the same bits). Returns (wi, dist, Li (..., S),
     pdf, kind); pdf includes the 1/n_lights selection factor."""
+    if spd_vals is None:
+        spd_vals = light_spds(table, lam)
     nl = table.n_lights
     li = torch.clamp((u_light.detach() * nl).to(torch.int64), 0, nl - 1)
     kind = table.kind[li]
@@ -149,12 +159,16 @@ def sample_light(table: LightTable, p, n, u_light, u_pos, spd_vals,
     return wi, dist, li_val, pdf, kind
 
 
-def env_radiance(table: LightTable, spd_vals):
-    """Radiance an escaped ray collects from ambient lights: Σ spd·scale,
-    from the light SPDs at the hero wavelengths ``spd_vals`` (..., S, L)."""
-    w = torch.where(table.kind == AMBIENT, table.scale,
-                    torch.zeros_like(table.scale))
-    return torch.einsum("...sl,l->...s", spd_vals, w)
+def env_radiance(table: LightTable, lam, spd_vals=None):
+    """Radiance an escaped ray collects from ambient lights: (Σ spd·scale
+    at the hero wavelengths ``lam`` (..., S), the number of ambient
+    lights). ``spd_vals`` (..., S, L): the light SPDs at ``lam``, or None
+    to interpolate them here (:func:`light_spds`, the same bits)."""
+    if spd_vals is None:
+        spd_vals = light_spds(table, lam)
+    is_amb = table.kind == AMBIENT
+    w = torch.where(is_amb, table.scale, torch.zeros_like(table.scale))
+    return torch.einsum("...sl,l->...s", spd_vals, w), is_amb.sum()
 
 
 def pdf_ambient_direction(table: LightTable, n_prev, d):

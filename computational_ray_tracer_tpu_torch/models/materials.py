@@ -111,19 +111,44 @@ class MaterialView:
         return cls(table.kind[mid], table.albedo_coeffs[mid],
                    table.use_texture[mid], table.roughness[mid], table, mid)
 
+    @property
+    def emission_table(self):
+        return self.table.emission
 
-def material_spectra(view: MaterialView, lam):
+    @property
+    def eta_table(self):
+        return self.table.eta
+
+    @property
+    def k_table(self):
+        return self.table.k
+
+
+def material_spectra(mat_row: MaterialView, lam):
     """(emission, eta, k) at the hero wavelengths."""
-    t = view.table
-    return tuple(spec.sample_dense_rows(x, view.mid, lam)
-                 for x in (t.emission, t.eta, t.k))
+    return tuple(spec.sample_dense_rows(x, mat_row.mid, lam)
+                 for x in (mat_row.emission_table, mat_row.eta_table,
+                           mat_row.k_table))
 
 
-def material_albedo(view, lam, tex_rgb_coeffs=None):
-    alb = colorlib.sigmoid_polynomial(view.albedo_coeffs, lam)
+def material_emission(mat_row: MaterialView, lam):
+    """Emitted radiance at the hero wavelengths."""
+    return spec.sample_dense_rows(mat_row.emission_table, mat_row.mid, lam)
+
+
+def _eta_k(mat_row, lam, eta_k):
+    """``eta_k``, or else (eta, k) at the hero wavelengths."""
+    if eta_k is not None:
+        return eta_k
+    return tuple(spec.sample_dense_rows(x, mat_row.mid, lam)
+                 for x in (mat_row.eta_table, mat_row.k_table))
+
+
+def material_albedo(mat_row, lam, tex_rgb_coeffs=None):
+    alb = colorlib.sigmoid_polynomial(mat_row.albedo_coeffs, lam)
     if tex_rgb_coeffs is not None:
         tex = colorlib.sigmoid_polynomial(tex_rgb_coeffs, lam)
-        alb = torch.where(view.use_texture[..., None], alb * tex, alb)
+        alb = torch.where(mat_row.use_texture[..., None], alb * tex, alb)
     return alb
 
 
@@ -228,59 +253,65 @@ def _rough_conductor_fpdf(wo_l, wi_l, alpha, eta_s, k_s, tint):
             torch.where(same, pdf, torch.zeros_like(pdf)))
 
 
-def bsdf_eval(view, n, wo, wi, lam, eta_k, tex_rgb_coeffs=None,
+def bsdf_eval(mat_row, n, wo, wi, lam, tex_rgb_coeffs=None, eta_k=None,
               enable_rough=True):
     """f(wo, wi) (..., S) and pdf(wi) of the sampleable lobes (Lambertian +
     GGX); delta kinds evaluate to 0. ``eta_k``: the (eta, k) spectra at
-    the hero wavelengths (``material_spectra`` or the spectral cache)."""
+    the hero wavelengths (the spectral cache), or None to interpolate them
+    for the material rows."""
     cos_i = _dot(n, wi)
     same_hemi = (_dot(n, wo) > 0) & (cos_i > 0)
-    alb = material_albedo(view, lam, tex_rgb_coeffs)
-    is_diffuse = (view.kind == LAMBERTIAN) & same_hemi
+    alb = material_albedo(mat_row, lam, tex_rgb_coeffs)
+    is_diffuse = (mat_row.kind == LAMBERTIAN) & same_hemi
     f = torch.where(is_diffuse[..., None], alb * INV_PI, torch.zeros_like(alb))
     pdf = torch.where(is_diffuse, torch.clamp(cos_i, min=0.0) * INV_PI,
                       torch.zeros_like(cos_i))
     if enable_rough:
-        is_rough = view.kind == ROUGH_CONDUCTOR
+        is_rough = mat_row.kind == ROUGH_CONDUCTOR
         t, b = build_frame(n)
-        eta_s, k_s = eta_k
-        tint = colorlib.sigmoid_polynomial(view.albedo_coeffs, lam)
+        eta_s, k_s = _eta_k(mat_row, lam, eta_k)
+        tint = colorlib.sigmoid_polynomial(mat_row.albedo_coeffs, lam)
         f_r, pdf_r = _rough_conductor_fpdf(to_local(t, b, n, wo),
                                            to_local(t, b, n, wi),
-                                           view.roughness, eta_s, k_s, tint)
+                                           mat_row.roughness, eta_s, k_s,
+                                           tint)
         f = torch.where(is_rough[..., None], f_r, f)
         pdf = torch.where(is_rough, pdf_r, pdf)
     return f, pdf
 
 
-def bsdf_sample(view, n, wo, u2, u1, lam, eta_k, backface,
-                tex_rgb_coeffs=None, enable_rough=True):
+def bsdf_sample(mat_row, n, wo, u2, u1, lam, wl_pdf=None,
+                tex_rgb_coeffs=None, eta_k=None, backface=None,
+                enable_rough=True):
     """Sample an outgoing direction per hit: (wi, weight (..., S), pdf,
     is_specular, terminate_secondary); weight = f·|cos|/pdf. ``backface``
-    (the ray hit the geometric back side) picks the dielectric's eta."""
+    (the ray hit the geometric back side) picks the dielectric's eta; None
+    reads the side from dot(n, wo) > 0 as the reference does (the front
+    face for a normal facing wo). ``eta_k`` as in :func:`bsdf_eval`;
+    ``wl_pdf`` is unused, as in the reference."""
     u2 = u2.detach()
     u1 = u1.detach()
     t, b = build_frame(n)
     wo_l = to_local(t, b, n, wo)
-    kind = view.kind
+    kind = mat_row.kind
 
     wi_l_diff = smp.sample_cosine_hemisphere(u2)
     wi_diff = to_world(t, b, n, wi_l_diff)
-    w_diff = material_albedo(view, lam, tex_rgb_coeffs)
+    w_diff = material_albedo(mat_row, lam, tex_rgb_coeffs)
     pdf_diff = torch.clamp(wi_l_diff[..., 2], min=1e-9) * INV_PI
 
     wi_spec = reflect(wo, n)
     cos_i = _dot(n, wo).abs()
-    eta_s, k_s = eta_k
-    tint = colorlib.sigmoid_polynomial(view.albedo_coeffs, lam)
+    eta_s, k_s = _eta_k(mat_row, lam, eta_k)
+    tint = colorlib.sigmoid_polynomial(mat_row.albedo_coeffs, lam)
     w_cond = fresnel_conductor(cos_i[..., None], eta_s, k_s) * tint
 
     if enable_rough:
-        h_l = ggx_sample_half(u2, view.roughness)
+        h_l = ggx_sample_half(u2, mat_row.roughness)
         wi_l_rough = 2.0 * _dot(wo_l, h_l)[..., None] * h_l - wo_l
         wi_rough = to_world(t, b, n, wi_l_rough)
         f_rough, pdf_rough = _rough_conductor_fpdf(
-            wo_l, wi_l_rough, view.roughness, eta_s, k_s, tint)
+            wo_l, wi_l_rough, mat_row.roughness, eta_s, k_s, tint)
         w_rough = f_rough * (torch.clamp(wi_l_rough[..., 2], min=0.0)
                              / torch.clamp(pdf_rough, min=1e-12))[..., None]
         w_rough = torch.where((pdf_rough > 1e-12)[..., None], w_rough,
@@ -290,7 +321,8 @@ def bsdf_sample(view, n, wo, u2, u1, lam, eta_k, backface,
         pdf_rough = torch.ones_like(cos_i)
 
     eta_hero = eta_s[..., 0]
-    eta_rel = torch.where(~backface, eta_hero, 1.0 / eta_hero)
+    front = _dot(n, wo) > 0 if backface is None else ~backface
+    eta_rel = torch.where(front, eta_hero, 1.0 / eta_hero)
     fr = fresnel_dielectric(cos_i, eta_rel)
     refl = u1 < fr
     wt, tir = refract(wo, n, eta_rel)

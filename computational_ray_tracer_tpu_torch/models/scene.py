@@ -4,11 +4,13 @@ triangle mesh, the mesh either brute force or in an octree.
 
 On a CUDA device every mesh query goes through a hand-written kernel: the
 brute mesh through ``ops/mesh_intersect_kernel.py`` (the reference needs
-``use_pallas=True`` for its kernel), the octree through
-``ops/octree_kernel.py``, each in its closest-hit and any-hit modes (the
-reference's brute any hit is its closest hit's ``id >= 0``; the port's
-any-hit kernel gives the same bit and stops at the first hit). On the CPU
-the same wrappers run the kernels' plain versions.
+``use_pallas=True`` for its kernel; here ``Scene.use_pallas`` is kept and
+changes nothing), the octree through ``ops/octree_kernel.py``, each in its
+closest-hit and any-hit modes (the reference's brute any hit is its closest
+hit's ``id >= 0``; the port's any-hit kernel gives the same bit and stops
+at the first hit). On the CPU the same wrappers run the kernels' plain
+versions. The queries take the reference's ``coherent`` hint (its packet
+shape on the TPU), which changes no value here.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ class Scene:
     packed_octree: Optional[okern.PackedOctree] = None
     wr: float = 100.0                      # world radius (static)
     has_rough: bool = True                 # any GGX material present
+    use_pallas: bool = False               # kept; changes nothing
     cylinders: Optional[shp.CylinderTable] = None
     disks: Optional[shp.DiskTable] = None
     cylinder_mat: Optional[torch.Tensor] = None
@@ -58,16 +61,20 @@ class Scene:
         return self.wr
 
     @classmethod
-    def build(cls, materials, lights, spheres=None, mesh=None,
-              use_octree=True, octree_capacity=None, texture_rgb=None,
-              backface_cull_dir=None, device="cuda", cylinders=None,
-              disks=None):
-        """Host-side assembly as the reference's ``Scene.build``. Shape
-        dicts (``spheres``, ``cylinders``, ``disks``) carry a ``material``
-        index. ``mesh``
+    def build(cls, materials, lights, spheres=None, cylinders=None,
+              disks=None, mesh=None, use_octree=True, texture_rgb=None,
+              backface_cull_dir=None, use_pallas=False, octree_capacity=None,
+              device="cuda"):
+        """Host-side assembly as the reference's ``Scene.build``, in its
+        argument order. Shape dicts (``spheres``, ``cylinders``,
+        ``disks``) carry a ``material`` index. ``mesh``
         is a MeshData or (MeshData, per-triangle material ids) on
         ``device``; with ``use_octree`` it is put in an octree of leaf
-        capacity ``octree_capacity`` (default ``TRIANGLE_CAPACITY``).
+        capacity ``octree_capacity`` (default ``TRIANGLE_CAPACITY``),
+        built through ``octree.build_host_octree``'s disk cache.
+        ``use_pallas`` is kept on the scene and changes nothing: on a card
+        the brute mesh always goes through the CUDA kernel, on the CPU
+        through its plain version.
         ``backface_cull_dir`` drops the faces whose normal points along
         that direction (the mask goes into the packed octree and the brute
         test).
@@ -95,8 +102,8 @@ class Scene:
             if use_octree:
                 cap = (octree_capacity if octree_capacity is not None
                        else octmod.TRIANGLE_CAPACITY)
-                tree = octmod.build_octree(mesh.positions.cpu().numpy(),
-                                           mesh.indices.cpu().numpy(), cap)
+                tree = octmod.build_host_octree(
+                    *octmod.host_mesh_arrays(mesh), cap)
                 packed = okern.pack_from_numpy(tree, mesh, tri_mask)
         tex = (None if texture_rgb is None
                else texture_from_rgb(texture_rgb, device))
@@ -114,7 +121,8 @@ class Scene:
         has_rough = bool((mats.kind == ROUGH_CONDUCTOR).any())
         return cls(sph, mesh, mats, lts, sph_m, tri_mat, tex, tri_mask, tree,
                    packed, wr=10.0 * r, has_rough=has_rough, cylinders=cyl,
-                   disks=dsk, cylinder_mat=cyl_m, disk_mat=dsk_m)
+                   disks=dsk, cylinder_mat=cyl_m, disk_mat=dsk_m,
+                   use_pallas=use_pallas)
 
 
 def texture_from_rgb(texture_rgb, device):
@@ -176,9 +184,11 @@ def _analytic(scene: Scene):
     return [k for k in kinds if k[1] is not None]
 
 
-def scene_intersect_t(scene: Scene, o, d, t_max, stats=False):
-    """Hit-distance phase: (t_best, type_best, idx_best, b1, b2), then,
-    with ``stats``, the triangle tests of each ray (int32)."""
+def scene_intersect_t(scene: Scene, o, d, t_max, coherent=True,
+                      stats=False):
+    """Hit-distance phase: (t_best, type_best, idx_best, b1, b2,
+    tri_tests), the last the triangle tests of each ray (int32) with
+    ``stats`` and None without (no counter is read then)."""
     batch = o.shape[:-1]
     t_best = t_max
     type_best = torch.zeros(batch, dtype=torch.int64, device=o.device)
@@ -205,12 +215,9 @@ def scene_intersect_t(scene: Scene, o, d, t_max, stats=False):
         idx_best = torch.where(better, ti.to(torch.int64), idx_best)
         b1 = torch.where(better, mb1, b1)
         b2 = torch.where(better, mb2, b2)
-    out = (t_best, type_best, idx_best, b1, b2)
-    if not stats:
-        return out
-    if tri_tests is None:
+    if stats and tri_tests is None:
         tri_tests = torch.zeros(batch, dtype=torch.int32, device=o.device)
-    return out + (tri_tests,)
+    return t_best, type_best, idx_best, b1, b2, tri_tests
 
 
 def _merge(si, new, mask):
@@ -225,7 +232,7 @@ def _merge(si, new, mask):
 
 def scene_surface(scene: Scene, o, d, hit):
     """Surface info + material id for the winners of scene_intersect_t."""
-    t_best, type_best, idx_best, b1, b2 = hit
+    t_best, type_best, idx_best, b1, b2 = hit[:5]
     valid = torch.isfinite(t_best) & (type_best != TYPE_NONE)
     t_hit = torch.where(valid, t_best, torch.full_like(t_best, float("inf")))
     batch = o.shape[:-1]
@@ -254,16 +261,16 @@ def scene_surface(scene: Scene, o, d, hit):
     return si, mat_id
 
 
-def scene_intersect(scene: Scene, o, d, t_max, stats=False):
-    """Closest hit across all shape types: (SurfaceInfo, material id), then,
-    with ``stats``, the triangle tests of each ray, as the reference's
-    third output."""
-    hit = scene_intersect_t(scene, o, d, t_max, stats)
-    si, mat_id = scene_surface(scene, o, d, hit[:5])
-    return (si, mat_id, hit[5]) if stats else (si, mat_id)
+def scene_intersect(scene: Scene, o, d, t_max, coherent=True, stats=False):
+    """Closest hit across all shape types: (SurfaceInfo, material id,
+    triangle tests). The third is the reference's counter of each ray with
+    ``stats``, and None without, so the render path reads no counter."""
+    hit = scene_intersect_t(scene, o, d, t_max, stats=stats)
+    si, mat_id = scene_surface(scene, o, d, hit)
+    return si, mat_id, hit[5]
 
 
-def scene_anyhit(scene: Scene, o, d, t_max):
+def scene_anyhit(scene: Scene, o, d, t_max, coherent=True):
     """Does anything intersect in (0, t_max)? The octree takes the rays in
     packet order: sorted, traced and scattered back, which changes no
     value (the reference sorts its incoherent shadow wavefronts)."""
@@ -287,11 +294,18 @@ def scene_anyhit(scene: Scene, o, d, t_max):
     return hit | unsorted.reshape(t_m.shape)
 
 
-def scene_occluded(scene: Scene, p, wi, dist, eps, n):
+def scene_occluded(scene: Scene, p, wi, dist, eps=1e-3, n=None,
+                   coherent=True):
     """Shadow-ray predicate: is anything between p and p + wi*dist? The
-    origin is offset along n, signed toward wi's hemisphere."""
-    s = torch.sign(torch.sum(wi * n, dim=-1))
-    o = p + n * (s * eps)[..., None]
+    origin is offset by ``eps`` (per ray or one value) along n, signed
+    toward wi's hemisphere, or along wi when ``n`` is None."""
+    eps = torch.as_tensor(eps, dtype=p.dtype, device=p.device).expand(
+        p.shape[:-1])
+    if n is None:
+        o = p + wi * eps[..., None]
+    else:
+        s = torch.sign(torch.sum(wi * n, dim=-1))
+        o = p + n * (s * eps)[..., None]
     return scene_anyhit(scene, o, wi, dist * (1.0 - 1e-3) - eps)
 
 

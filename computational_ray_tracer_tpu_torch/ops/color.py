@@ -50,6 +50,9 @@ class RGBColorSpace:
     """An RGB colour space from primary + whitepoint chromaticities; the
     matrices are derived in float64 on the host."""
     name: str
+    r: tuple
+    g: tuple
+    b: tuple
     w: tuple
     xyz_from_rgb: np.ndarray
     rgb_from_xyz: np.ndarray
@@ -62,7 +65,8 @@ class RGBColorSpace:
             return np.array([x / y, 1.0, (1 - x - y) / y], dtype=np.float64)
         M = np.stack([xyY(r), xyY(g), xyY(b)], axis=1)
         xyz_from_rgb = M * np.linalg.solve(M, xyY(w))[None, :]
-        return cls(name, w, xyz_from_rgb, np.linalg.inv(xyz_from_rgb),
+        return cls(name, r, g, b, w, xyz_from_rgb,
+                   np.linalg.inv(xyz_from_rgb),
                    np.asarray(illuminant, dtype=np.float32))
 
     def to_rgb(self, xyz):
@@ -147,8 +151,8 @@ class RGBAlbedoSpectrum:
     coeffs: torch.Tensor
 
     @classmethod
-    def from_rgb(cls, rgb):
-        return cls(fit_rgb_to_spectrum(rgb))
+    def from_rgb(cls, rgb, colorspace=SRGB):
+        return cls(fit_rgb_to_spectrum(rgb, colorspace))
 
     def __call__(self, lam):
         return sigmoid_polynomial(self.coeffs, lam)

@@ -38,10 +38,11 @@ def two_sum(a, b):
     return s, (a - (s - delta)) + (b - delta)
 
 
-def compensated_sum(values, dim=-1):
-    """Kahan-compensated sum along ``dim``, in the reference's order (one
-    element at a time from the first)."""
-    values = torch.movedim(torch.as_tensor(values), dim, 0)
+def compensated_sum(values, axis=-1, *, dim=None):
+    """Kahan-compensated sum along ``axis`` (``dim``: its torch name), in
+    the reference's order (one element at a time from the first)."""
+    values = torch.movedim(torch.as_tensor(values),
+                           axis if dim is None else dim, 0)
     s = torch.zeros_like(values[0])
     c = torch.zeros_like(values[0])
     for i in range(values.shape[0]):

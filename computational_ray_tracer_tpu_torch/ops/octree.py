@@ -1,7 +1,8 @@
 """Octree over a triangle mesh (``computational_ray_tracer_tpu/ops/
 octree.py``): the host-side NumPy build and the plain PyTorch traversal.
 
-The build is one-shot scene set-up: a top-down split with leaf capacity
+The build is one-shot scene set-up, kept in a content-keyed disk cache
+(:func:`build_host_octree`): a top-down split with leaf capacity
 ``capacity``, child bounds padded by a fraction of the child's extent, the
 split aborted when it separates nothing, the Moller triangle/box overlap
 test, and a post-pass that splits over-full leaves into chains of
@@ -10,6 +11,8 @@ builder, bit for bit. Two builders do the split: the native C++ one
 (``csrc/host/octree_builder.cpp``, built by g++ at first use; the default)
 and the vectorized NumPy one, its plain version (``backend="numpy"``).
 
+:func:`build_octree` takes the reference's form (a MeshData; the tree
+as tensors on its device, and packed with ``pack``).
 :func:`octree_traverse` is the reference's lockstep traversal in PyTorch
 and the plain version of the CUDA traversal kernel
 (``ops/octree_kernel.py``, which packs the tree for it).
@@ -19,13 +22,16 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import hashlib
 import math
+import os
 
 import numpy as np
 import torch
 
 from computational_ray_tracer_tpu_torch.ops import mesh_intersect_kernel as mik
 from computational_ray_tracer_tpu_torch.ops.shapes import fp_gamma
+from computational_ray_tracer_tpu_torch.utils import asset_cache
 
 TRIANGLE_CAPACITY = 40
 # Child-bounds padding as a fraction of the child box's extent (per axis,
@@ -42,6 +48,13 @@ MAX_TREE_DEPTH = 24
 STACK_SIZE = 7 * MAX_TREE_DEPTH + 1
 # (rays x leaf capacity) pairs per leaf-test chunk of the plain traversal.
 _LEAF_PAIRS_PER_CHUNK = 1 << 22
+# Part of the disk cache's key: bump it when a builder or the over-full-leaf
+# split changes the tree it gives for the same inputs.
+BUILDER_VERSION = "v1"
+_BUILDER_SOURCE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc", "host", "octree_builder.cpp")
+TREE_FIELDS = ("node_lo", "node_hi", "node_child0", "node_leaf_id",
+                "leaf_tris", "leaf_counts")
 
 
 @dataclasses.dataclass
@@ -287,19 +300,74 @@ def _build_octree_native(pos_np, idx_np, capacity, max_depth, padding):
 _BUILDERS = {"native": _build_octree_native, "numpy": _build_octree_numpy}
 
 
-def build_octree(positions, indices, capacity=TRIANGLE_CAPACITY,
-                 max_depth=MAX_DEPTH, backend="native"):
-    """Octree over a world-space mesh given as host arrays (positions
-    (V, 3), indices (F, 3)): the ``backend`` build ("native", the C++
-    builder, or "numpy", its plain version; both give the same tree) with
-    the fractional child padding, then the over-full-leaf split."""
+def _cache_key(pos, idx, capacity, max_depth, padding):
+    """blake2b of the mesh bytes, every build parameter and the C++
+    builder's source, as the reference keys its cache."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(pos.tobytes())
+    h.update(idx.tobytes())
+    h.update(f"{BUILDER_VERSION}_c{capacity}_d{max_depth}"
+             f"_p{padding!r}".encode())
+    with open(_BUILDER_SOURCE, "rb") as fh:
+        h.update(fh.read())
+    return f"octree_{h.hexdigest()}"
+
+
+def build_host_octree(positions, indices, capacity=TRIANGLE_CAPACITY,
+                      max_depth=MAX_DEPTH, padding=None, backend="native"):
+    """Octree (host arrays) over a world-space mesh given as host arrays,
+    positions (V, 3) and indices (F, 3): the ``backend`` build
+    ("native", the C++ builder, or "numpy", its plain version; both give
+    the same tree) with the child padding ``padding`` (a fraction of each
+    child box's extent; None: ``CHILD_PADDING_FRAC``), then the over-full-
+    leaf split.
+
+    The built tree is kept in ``utils/asset_cache`` under a key of the
+    mesh bytes, the parameters and the builder's source, so a cached tree
+    is the rebuilt one bit for bit (the backend is not in the key: both
+    give the same tree). ``CRT_OCTREE_CACHE=0`` turns the cache off."""
     if backend not in _BUILDERS:
         raise ValueError(f"unknown octree backend {backend!r}")
-    pos = np.asarray(positions, np.float32)
-    idx = np.asarray(indices, np.int32)
-    tree = _BUILDERS[backend](pos, idx, capacity, max_depth,
-                              CHILD_PADDING_FRAC)
-    return _split_oversized_leaves(tree, capacity)
+    pos = np.ascontiguousarray(positions, np.float32)
+    idx = np.ascontiguousarray(indices, np.int32)
+    if padding is None:
+        padding = CHILD_PADDING_FRAC
+    cache_on = os.environ.get("CRT_OCTREE_CACHE", "1") != "0"
+    if cache_on:
+        key = _cache_key(pos, idx, capacity, max_depth, padding)
+        hit = asset_cache.load(key)
+        if hit is not None and all(f in hit for f in TREE_FIELDS):
+            return Octree(**{f: hit[f] for f in TREE_FIELDS})
+    tree = _split_oversized_leaves(
+        _BUILDERS[backend](pos, idx, capacity, max_depth, padding), capacity)
+    if cache_on:
+        asset_cache.store(key, **{f: getattr(tree, f) for f in TREE_FIELDS})
+    return tree
+
+
+def host_mesh_arrays(mesh):
+    """(positions float32 (V, 3), indices int32 (F, 3)) of a MeshData as
+    host arrays."""
+    return (mesh.positions.detach().cpu().numpy().astype(np.float32),
+            mesh.indices.cpu().numpy().astype(np.int32))
+
+
+def build_octree(mesh, capacity=TRIANGLE_CAPACITY, max_depth=MAX_DEPTH,
+                 padding=None, backend="auto", pack=False, tri_mask=None):
+    """The reference's form: the octree of a MeshData as tensors on the
+    mesh's device (:meth:`Octree.to`), or (that tree, the packed tree of
+    ``octree_kernel.pack_from_numpy`` under ``tri_mask``) with ``pack``.
+    ``backend`` "auto" is the native builder (a failed compile raises;
+    there is no fallback). The build goes through
+    :func:`build_host_octree` and its cache."""
+    from computational_ray_tracer_tpu_torch.ops import octree_kernel as okern
+    tree = build_host_octree(*host_mesh_arrays(mesh), capacity, max_depth,
+                             padding,
+                             "native" if backend == "auto" else backend)
+    tree_dev = tree.to(mesh.positions.device)
+    if not pack:
+        return tree_dev
+    return tree_dev, okern.pack_from_numpy(tree, mesh, tri_mask)
 
 
 def tree_depth(tree: Octree):
@@ -311,12 +379,14 @@ def tree_depth(tree: Octree):
     return int(depth.max())
 
 
-def octree_traverse(o, d, t_max, tree: Octree, tri_verts, tri_mask=None):
+def octree_traverse(o, d, t_max, tree: Octree, mesh, tri_mask=None,
+                    pops=False):
     """Closest hit of rays o/d (..., 3), t_max (...) in the octree
-    ``tree`` (tensors, :meth:`Octree.to`) over the triangles ``tri_verts``
-    (9, F): the reference's ``octree_traverse`` in PyTorch. Returns (t,
-    tri_idx, b1, b2, tri_tests, node_pops) with t = inf and tri_idx = -1 on
-    a miss.
+    ``tree`` (tensors, :meth:`Octree.to`) over the triangles of ``mesh``
+    (a MeshData, or its (9, F) ``tri_verts``): the reference's
+    ``octree_traverse`` in PyTorch. Returns (t, tri_idx, b1, b2,
+    tri_tests) with t = inf and tri_idx = -1 on a miss, then, with
+    ``pops``, the node pops of each ray.
 
     Every ray keeps a node stack: pop a node, slab-test its bounds against
     (0, t_best), push the 8 children of a hit interior node (child 7 pops
@@ -324,6 +394,7 @@ def octree_traverse(o, d, t_max, tree: Octree, tri_verts, tri_mask=None):
     watertight test against t_best, keeping the first of equal minima. The
     pops run in lockstep over the rays still holding stack entries, in the
     reference's order, so the two agree bit for bit."""
+    tri_verts = getattr(mesh, "tri_verts", mesh)
     batch = o.shape[:-1]
     dev = o.device
     o = o.reshape(-1, 3)
@@ -341,11 +412,11 @@ def octree_traverse(o, d, t_max, tree: Octree, tri_verts, tri_mask=None):
     stack = torch.zeros((n, STACK_SIZE), dtype=torch.int64, device=dev)
     sp = torch.ones(n, dtype=torch.int64, device=dev)   # root in slot 0
     t_best = t_max.reshape(-1).clone()
+    pop_count = torch.zeros(n, dtype=torch.int32, device=dev)
     tri_best = torch.full((n,), -1, dtype=torch.int64, device=dev)
     b1_best = torch.zeros(n, device=dev)
     b2_best = torch.zeros(n, device=dev)
     tests = torch.zeros(n, dtype=torch.int32, device=dev)
-    pops = torch.zeros(n, dtype=torch.int32, device=dev)
     eight = torch.arange(8, device=dev)
 
     def leaf_test(r, leaf):
@@ -372,7 +443,7 @@ def octree_traverse(o, d, t_max, tree: Octree, tri_verts, tri_mask=None):
     while active.numel():
         top = sp[active] - 1
         sp[active] = top
-        pops[active] += 1
+        pop_count[active] += 1
         node = stack[active, top]
         oa = o[active]
         t0 = (tree.node_lo[node] - oa) * inv_d[active]
@@ -395,5 +466,6 @@ def octree_traverse(o, d, t_max, tree: Octree, tri_verts, tri_mask=None):
 
     hit = torch.isfinite(t_best) & (tri_best >= 0)
     out = (torch.where(hit, t_best, torch.full_like(t_best, math.inf)),
-           tri_best.to(torch.int32), b1_best, b2_best, tests, pops)
+           tri_best.to(torch.int32), b1_best, b2_best, tests) + (
+               (pop_count,) if pops else ())
     return tuple(x.reshape(batch) for x in out)

@@ -214,7 +214,8 @@ def octree_intersect(o, d, t_max, packed: PackedOctree, stats=False):
     batch = o.shape[:-1]
     if o.device.type == "cpu":
         out = octmod.octree_traverse(o, d, t_max, packed.tree,
-                                     packed.tri_verts, packed.tri_mask)
+                                     packed.tri_verts, packed.tri_mask,
+                                     pops=True)
         return out if stats else out[:4]
     if o.device.type != "cuda":
         raise ValueError(f"octree_intersect: unsupported device {o.device}")
@@ -233,7 +234,8 @@ def octree_anyhit(o, d, t_max, packed: PackedOctree, stats=False):
     batch = o.shape[:-1]
     if o.device.type == "cpu":
         out = octmod.octree_traverse(o, d, t_max, packed.tree,
-                                     packed.tri_verts, packed.tri_mask)
+                                     packed.tri_verts, packed.tri_mask,
+                                     pops=True)
         return (out[1] >= 0,) + out[4:] if stats else out[1] >= 0
     if o.device.type != "cuda":
         raise ValueError(f"octree_anyhit: unsupported device {o.device}")

@@ -8,8 +8,9 @@ illuminant to the sRGB whitepoint. A named sensor takes the measured
 curves of one of 17 cameras (``spectra_data.SENSOR_CURVES``); its matrix
 is the least-squares fit, in float64 on the host, of the 24 ColorChecker
 swatches' XYZ under D65 (the sRGB illuminant) to their sensor RGB under
-the sensor illuminant (D65 by default). The reference's imaging ratio is
-always 1 in the renders and is left out.
+the sensor illuminant (D65 by default). The output colour space
+(sRGB by default) sets the white balance's target and the swatches'
+illuminant; the imaging ratio scales the sensor RGB (1 in the renders).
 """
 
 from __future__ import annotations
@@ -70,14 +71,19 @@ def _project_reflectance(refl, illum, curves):
 class PixelSensor:
     curves: np.ndarray               # (3, 471) response curves
     xyz_from_sensor_rgb: np.ndarray  # (3, 3)
+    imaging_ratio: float = 1.0
 
     @classmethod
-    def create(cls, sensor_name=None, sensor_illum=None):
-        """The reference's ``PixelSensor.create`` for the sRGB colour space:
-        ``sensor_name=None`` is the XYZ-matching sensor; a name from
+    def create(cls, sensor_name=None, colorspace=None, sensor_illum=None,
+               imaging_ratio=1.0):
+        """The reference's ``PixelSensor.create``: ``sensor_name=None`` is
+        the XYZ-matching sensor, white-balanced from ``sensor_illum`` to
+        the whitepoint of ``colorspace`` (None: sRGB); a name from
         ``SENSOR_CURVES`` is that camera, calibrated on the ColorChecker
-        swatches. ``sensor_illum``: a dense (471,) illuminant."""
-        cs = colorlib.SRGB
+        swatches under the colour space's illuminant. ``sensor_illum``: a
+        dense (471,) illuminant."""
+        cs = colorspace or colorlib.SRGB
+        ratio = float(imaging_ratio)
         if sensor_name is None:
             curves = np.stack([data.CIE_X, data.CIE_Y, data.CIE_Z])
             m = np.eye(3, dtype=np.float32)
@@ -85,7 +91,7 @@ class PixelSensor:
                 src = _illum_xyz(sensor_illum)
                 m = colorlib.white_balance_matrix(tuple(src[:2] / src.sum()),
                                                   cs.w)
-            return cls(curves.astype(np.float32), m)
+            return cls(curves.astype(np.float32), m, ratio)
         curves = np.stack(data.SENSOR_CURVES[sensor_name]).astype(np.float64)
         illum = np.asarray(data.ILLUM_D65 if sensor_illum is None
                            else sensor_illum, np.float64)
@@ -96,15 +102,17 @@ class PixelSensor:
         xyz = _project_reflectance(refl, np.asarray(cs.illuminant,
                                                     np.float64), cmf)
         m, *_ = np.linalg.lstsq(rgb_cam, xyz, rcond=None)
-        return cls(curves.astype(np.float32), m.T.astype(np.float32))
+        return cls(curves.astype(np.float32), m.T.astype(np.float32), ratio)
 
     def to_sensor_rgb(self, L, wl):
         """(..., S) radiance + wavelengths -> (..., 3) sensor RGB:
-        mean over λ of b̄(λ)·L/pdf / ∫ȳ."""
+        imaging ratio x mean over λ of b̄(λ)·L/pdf / ∫ȳ."""
         w = spec.safe_div(L, wl.pdf)
         curves = torch.as_tensor(self.curves.T.copy(), device=L.device)
         bars = spec.sample_dense_multi(curves, wl.lam)       # (..., S, 3)
         rgb = torch.mean(bars * w[..., None], dim=-2)
+        if self.imaging_ratio != 1.0:     # x 1.0: no bit changes, no launch
+            rgb = self.imaging_ratio * rgb
         return rgb / spec.CIE_Y_INTEGRAL
 
     def sensor_rgb_to_xyz(self, rgb):

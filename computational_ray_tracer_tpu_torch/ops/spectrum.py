@@ -101,14 +101,16 @@ def sample_visible_wavelengths(u, n=N_SPECTRUM_SAMPLES):
     return SampledWavelengths(lam, visible_wavelengths_pdf(lam))
 
 
-def sample_uniform_wavelengths(u, n=N_SPECTRUM_SAMPLES):
-    """Stratified uniform hero wavelengths over [360, 830] from one u in
-    [0, 1): lam0 = lerp(u), the others advance by 470 / n nm and wrap."""
-    span = LAMBDA_MAX - LAMBDA_MIN
-    lam0 = LAMBDA_MIN + u[..., None] * span
+def sample_uniform_wavelengths(u, lam_min=LAMBDA_MIN, lam_max=LAMBDA_MAX,
+                               n=N_SPECTRUM_SAMPLES):
+    """Stratified uniform hero wavelengths over [lam_min, lam_max] from one
+    u in [0, 1): lam0 = lerp(u), the others advance by (lam_max - lam_min)
+    / n nm and wrap."""
+    span = lam_max - lam_min
+    lam0 = lam_min + u[..., None] * span
     lam = lam0 + torch.arange(n, dtype=lam0.dtype, device=u.device) * (
         span / n)
-    lam = torch.where(lam > LAMBDA_MAX, LAMBDA_MIN + (lam - LAMBDA_MAX), lam)
+    lam = torch.where(lam > lam_max, lam_min + (lam - lam_max), lam)
     return SampledWavelengths(lam, torch.full_like(lam, 1.0 / span))
 
 

@@ -16,7 +16,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from computational_ray_tracer_tpu_torch.ops.shapes import SurfaceInfo
+from computational_ray_tracer_tpu_torch.ops.shapes import (  # noqa: F401
+    SurfaceInfo, difference_of_products, fp_gamma, make_transform,
+    transform_normal, transform_point, transform_vector)
 from computational_ray_tracer_tpu_torch.ops import mesh_intersect_kernel as mik
 
 
@@ -41,10 +43,11 @@ class MeshData:
                        np.asarray(indices, np.int64), device=device))
 
     @classmethod
-    def build(cls, positions, indices, normals=None, uvs=None, device="cpu",
-              transform=None):
+    def build(cls, positions, indices, normals=None, uvs=None, tangents=None,
+              bitangents=None, transform=None, device="cpu"):
         """Host-side constructor with the reference's attribute defaults:
-        area-weighted vertex normals, zero uvs, an arbitrary tangent frame;
+        area-weighted vertex normals, zero uvs, an arbitrary tangent frame
+        (given tangents and bitangents are kept as they are, as there);
         ``transform`` (``shapes.make_transform``'s (m, m_inv)) moves the
         positions and given normals to world space first."""
         pos = np.asarray(positions, np.float32).reshape(-1, 3)
@@ -64,9 +67,12 @@ class MeshData:
                 normals = normals / np.maximum(nl, 1e-12)
         uvs = (np.zeros((pos.shape[0], 2), np.float32) if uvs is None
                else np.asarray(uvs, np.float32).reshape(-1, 2))
-        tangents = _default_frame(normals)
-        return cls.from_arrays(pos, normals, uvs, tangents,
-                               np.cross(normals, tangents), idx, device)
+        tangents = (_default_frame(normals) if tangents is None
+                    else np.asarray(tangents, np.float32).reshape(-1, 3))
+        bitangents = (np.cross(normals, tangents) if bitangents is None
+                      else np.asarray(bitangents, np.float32).reshape(-1, 3))
+        return cls.from_arrays(pos, normals, uvs, tangents, bitangents, idx,
+                               device)
 
     @property
     def n_triangles(self):

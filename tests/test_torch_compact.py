@@ -111,12 +111,13 @@ def test_compact_matches_jax_compact():
 
 
 def test_render_honors_compact_flag(monkeypatch):
-    """render() runs the full wavefront (the faster path on the card, with
-    no compaction option), one render_pass per sample, and its film equals
-    the compacted passes' accumulation."""
+    """render() runs the full wavefront (the faster path on the card)
+    unless cfg.compact asks for compaction (off by default), one
+    render_pass per sample, and its film equals the compacted passes'
+    accumulation."""
     scene, camera, cfg = entry.cornell_setup(16, 2, device="cpu")
     cfg = dataclasses.replace(cfg, max_depth=5)
-    assert not hasattr(cfg, "compact")
+    assert cfg.compact is False
     flt, sensor = tinteg.make_filter(cfg), tsen.PixelSensor.create()
     compacted = [tinteg.render_pass_compact(scene, camera, cfg, flt, sensor,
                                             i) for i in range(2)]

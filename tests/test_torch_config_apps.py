@@ -402,7 +402,7 @@ def test_unknown_shape_kind_raises():
 def test_scene_intersect_stats_counts_as_the_reference():
     """stats=True returns the reference's third output: F a ray for the
     brute mesh, the plain traversal's tests for the octree, 0 without a
-    mesh; stats=False keeps the two outputs."""
+    mesh; stats=False gives None in its place."""
     scenes = tst.shape_scenes("cpu")
     o, d = tst.camera_rays(12, "cpu")
     t_max = torch.full((144,), float("inf"))
@@ -417,7 +417,7 @@ def test_scene_intersect_stats_counts_as_the_reference():
     _, _, tests = tscene_mod.scene_intersect(scenes["sphere"], o, d, t_max,
                                              stats=True)
     assert not tests.any()
-    assert len(tscene_mod.scene_intersect(octree, o, d, t_max)) == 2
+    assert tscene_mod.scene_intersect(octree, o, d, t_max)[2] is None
 
 
 SHAPE_NAMES = ["sphere", "cylinder", "disk", "mesh_octree", "mesh_brute"]

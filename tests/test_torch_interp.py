@@ -379,7 +379,8 @@ def test_backface_mask_and_pack_match_reference():
     np.testing.assert_array_equal(tmask.numpy(), jmask)
     jtree, jp = joct.build_octree(jmesh, capacity=40, pack=True,
                                   tri_mask=jnp.asarray(jmask))
-    tp = okern.pack_from_numpy(toct.build_octree(v, f, 40), tmesh, tmask)
+    tp = okern.pack_from_numpy(toct.build_host_octree(v, f, 40), tmesh,
+                               tmask)
     for name in ("nodes", "leaf_verts", "row_tri"):
         np.testing.assert_array_equal(getattr(tp, name).numpy(),
                                       np.asarray(getattr(jp, name)))
@@ -407,11 +408,11 @@ def test_native_builder_matches_numpy_and_reference(subdiv, cap):
             np.testing.assert_allclose(getattr(t_cc, k),
                                        np.asarray(getattr(ref, k)), rtol=0,
                                        atol=1e-6)
-    built = toct.build_octree(v, f, cap)
+    built = toct.build_host_octree(v, f, cap)
     jtree = joct.build_octree(jtri.MeshData.build(v, f, uvs=uv),
                               capacity=cap)
     for k in TREE_FIELDS:
         np.testing.assert_array_equal(getattr(built, k),
                                       np.asarray(getattr(jtree, k)))
     with pytest.raises(ValueError):
-        toct.build_octree(v, f, cap, backend="auto")
+        toct.build_host_octree(v, f, cap, backend="auto")

@@ -56,7 +56,7 @@ def _trees(subdiv, cap):
     v, f, uv = jmesh_gen.displaced_icosphere(subdiv)
     jmesh = jtri.MeshData.build(v, f, uvs=uv)
     return (v, f, uv), joct.build_octree(jmesh, capacity=cap), jmesh, \
-        toct.build_octree(v, f, cap)
+        toct.build_host_octree(v, f, cap)
 
 
 @pytest.mark.parametrize("subdiv,cap", [(2, 40), (2, 192), (3, 40),
@@ -98,7 +98,7 @@ def _camera_rays(res, origin=(0, 0.4, -3.2)):
 def _port_packed(subdiv, cap=joct.TRIANGLE_CAPACITY):
     v, f, uv = tmesh_gen.displaced_icosphere(subdiv)
     mesh = ttri.MeshData.build(v, f, uvs=uv, device="cpu")
-    return okern.pack_from_numpy(toct.build_octree(v, f, cap), mesh)
+    return okern.pack_from_numpy(toct.build_host_octree(v, f, cap), mesh)
 
 
 @pytest.mark.parametrize("subdiv", [2, 3])
@@ -193,7 +193,7 @@ def test_wrappers_run_plain_on_cpu_and_count_only_kernel_launches():
 
 def test_pack_refuses_trees_deeper_than_the_kernel_stack(monkeypatch):
     v, f, uv = tmesh_gen.displaced_icosphere(3)
-    tree = toct.build_octree(v, f, 40)
+    tree = toct.build_host_octree(v, f, 40)
     mesh = ttri.MeshData.build(v, f, uvs=uv)
     monkeypatch.setattr(toct, "MAX_TREE_DEPTH", toct.tree_depth(tree) - 1)
     with pytest.raises(ValueError, match="MAX_TREE_DEPTH"):
@@ -214,8 +214,8 @@ def test_octree_scene_matches_brute_scene():
 
     o, d = _camera_rays(32)
     tm = torch.full((o.shape[0],), float("inf"))
-    a = tscene_mod.scene_intersect_t(build(True), T(o), T(d), tm)
-    b = tscene_mod.scene_intersect_t(build(False), T(o), T(d), tm)
+    a = tscene_mod.scene_intersect_t(build(True), T(o), T(d), tm)[:5]
+    b = tscene_mod.scene_intersect_t(build(False), T(o), T(d), tm)[:5]
     hit = torch.isfinite(b[0])
     assert hit.float().mean() > 0.2
     assert torch.equal(a[0], b[0])
@@ -430,7 +430,7 @@ def test_kernel_matches_plain_on_cuda():
         pytest.skip("no CUDA device: the kernel runs only on the card")
     v, f, uv = tmesh_gen.displaced_icosphere(3)
     mesh = ttri.MeshData.build(v, f, uvs=uv, device="cuda")
-    packed = okern.pack_from_numpy(toct.build_octree(v, f, 40), mesh)
+    packed = okern.pack_from_numpy(toct.build_host_octree(v, f, 40), mesh)
     o, d = (torch.tensor(x, device="cuda") for x in _camera_rays(40))
     for t_max in (float("inf"), 2.5, -1.0):
         tm = torch.full((o.shape[0],), t_max, device="cuda")
@@ -465,7 +465,7 @@ def _card_case(case):
             (o.shape[0],), float("inf"), device="cuda")
     v, f, uv = tmesh_gen.displaced_icosphere(3)
     mesh = ttri.MeshData.build(v, f, uvs=uv, device="cuda")
-    packed = okern.pack_from_numpy(toct.build_octree(v, f, 40), mesh)
+    packed = okern.pack_from_numpy(toct.build_host_octree(v, f, 40), mesh)
     if case == "incoherent":
         n = 8192
         o = rng.uniform(-0.8, 0.8, (n, 3)).astype(np.float32)
@@ -519,3 +519,86 @@ def test_kernel_matches_plain_on_cuda_cases(case):
     assert (k[5][~dead] >= 1).all()
     if case != "mostly_dead":
         assert hit.float().mean() > 0.02
+
+
+# --- the octree build's disk cache and the reference's build form -----------
+
+@pytest.fixture
+def cache_dir(tmp_path, monkeypatch):
+    """asset_cache writing under the test's tmp dir, the cache on, and the
+    builder calls counted."""
+    from computational_ray_tracer_tpu_torch.utils import asset_cache
+    monkeypatch.setattr(asset_cache, "_CACHE_DIR", str(tmp_path))
+    monkeypatch.delenv("CRT_OCTREE_CACHE", raising=False)
+    calls = []
+    native = toct._BUILDERS["native"]
+
+    def counted(*args):
+        calls.append(args[2:])
+        return native(*args)
+
+    monkeypatch.setitem(toct._BUILDERS, "native", counted)
+    return tmp_path, calls
+
+
+def _equal_trees(a, b):
+    for k in TREE_FIELDS:
+        x, y = getattr(a, k), getattr(b, k)
+        assert x.dtype == y.dtype and np.array_equal(x, y), k
+
+
+def test_octree_cache_hit_skips_the_build(cache_dir, monkeypatch):
+    """The second build of a mesh reads the cache (the builder is not
+    called) and gives the rebuilt tree bit for bit; another capacity
+    misses; CRT_OCTREE_CACHE=0 builds and stores nothing."""
+    tmp, calls = cache_dir
+    trees = lambda: list(tmp.glob("torch_octree_*.npz"))
+    v, f, _ = tmesh_gen.displaced_icosphere(3)
+    first = toct.build_host_octree(v, f, 40)
+    assert len(calls) == 1 and len(trees()) == 1
+    second = toct.build_host_octree(v, f, 40)
+    assert len(calls) == 1
+    _equal_trees(second, first)
+    toct.build_host_octree(v, f, 41)
+    assert calls[-1][0] == 41 and len(calls) == 2
+    monkeypatch.setenv("CRT_OCTREE_CACHE", "0")
+    for p in trees():
+        p.unlink()
+    rebuilt = toct.build_host_octree(v, f, 40)
+    assert len(calls) == 3 and not trees()
+    _equal_trees(second, rebuilt)
+    _equal_trees(toct.build_host_octree(v, f, 40, backend="numpy"), rebuilt)
+
+
+def test_build_octree_reference_form(cache_dir):
+    """build_octree(mesh, capacity, pack=True, tri_mask=...) gives the
+    tree as tensors equal to the reference's, and the host form's packed
+    tables; octree_traverse takes the MeshData and gives five values (six
+    with pops)."""
+    _, calls = cache_dir
+    v, f, uv = jmesh_gen.displaced_icosphere(3)
+    mask = np.arange(f.shape[0]) % 3 != 0
+    mesh = ttri.MeshData.build(v, f, uvs=uv)
+    tree, packed = toct.build_octree(mesh, 40, pack=True,
+                                     tri_mask=torch.as_tensor(mask))
+    host = toct.build_host_octree(v, f, 40)
+    assert len(calls) == 1
+    jtree = joct.build_octree(jtri.MeshData.build(v, f, uvs=uv), 40)
+    for k in TREE_FIELDS:
+        np.testing.assert_array_equal(getattr(tree, k).numpy(),
+                                      np.asarray(getattr(jtree, k)))
+        assert getattr(tree, k).device == mesh.positions.device
+    want = okern.pack_from_numpy(host, mesh, mask)
+    for name in ("nodes", "leaf_verts", "row_tri"):
+        assert torch.equal(getattr(packed, name), getattr(want, name))
+    assert not isinstance(toct.build_octree(mesh, 40), tuple)
+    pos, idx = toct.host_mesh_arrays(mesh)
+    assert pos.dtype == np.float32 and idx.dtype == np.int32
+    o, d = _camera_rays(8)
+    tm = torch.full((o.shape[0],), float("inf"))
+    five = toct.octree_traverse(T(o), T(d), tm, tree, mesh)
+    six = toct.octree_traverse(T(o), T(d), tm, tree, mesh.tri_verts,
+                               pops=True)
+    assert len(five) == 5 and len(six) == 6 and six[5].sum() > 0
+    for x, y in zip(five, six):
+        assert torch.equal(x, y)

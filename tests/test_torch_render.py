@@ -221,10 +221,10 @@ def test_bsdf_all_kinds_match(fn):
     view = tmat.MaterialView.create(tt, T(mid))
     ek = tmat.material_spectra(view, T(lam))[1:]
     if fn == "eval":
-        got = tmat.bsdf_eval(view, T(nrm), T(wo), T(wi), T(lam), ek)
+        got = tmat.bsdf_eval(view, T(nrm), T(wo), T(wi), T(lam), eta_k=ek)
     else:
         got = tmat.bsdf_sample(view, T(nrm), T(wo), T(u2), T(u1), T(lam),
-                               ek, T(back))
+                               eta_k=ek, backface=T(back))
     for g, r in zip(got, ref):
         r = np.asarray(r)
         if r.dtype == bool:
@@ -255,7 +255,8 @@ def test_lights_all_kinds_match():
     ref = jax.jit(lambda *a: jlgt.sample_light(jt, *a, 10.0))(
         p, nrm, lam, u1, u2)
     spd_vals = tspec.sample_dense_multi(tt.spd.T.contiguous(), T(lam))
-    got = tlgt.sample_light(tt, T(p), T(nrm), T(u1), T(u2), spd_vals, 10.0)
+    got = tlgt.sample_light(tt, T(p), T(nrm), T(lam), T(u1), T(u2), 10.0,
+                            spd_vals=spd_vals)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-5,
                                    atol=2e-5)
@@ -266,7 +267,8 @@ def test_lights_all_kinds_match():
         tlgt.pdf_light_direction(tt, T(p), T(wo), T(t_hit)).numpy(),
         np.asarray(ref), rtol=2e-5, atol=1e-6)
     ref_env, _ = jlgt.env_radiance(jt, jnp.asarray(lam))
-    np.testing.assert_allclose(tlgt.env_radiance(tt, spd_vals).numpy(),
+    np.testing.assert_allclose(tlgt.env_radiance(tt, T(lam),
+                                                 spd_vals)[0].numpy(),
                                np.asarray(ref_env), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(
         tlgt.pdf_ambient_direction(tt, T(nrm), T(wo)).numpy(),

@@ -259,7 +259,7 @@ def test_scene_with_every_shape_kind():
     assert len(set(ht[1].tolist())) == 4           # miss + three kinds
     sj, mj, _ = jscene_mod.scene_intersect(jscene, jnp.asarray(o),
                                            jnp.asarray(d), jnp.asarray(t_max))
-    st, mt = tscene_mod.scene_intersect(tscene, T(o), T(d), T(t_max))
+    st, mt, _ = tscene_mod.scene_intersect(tscene, T(o), T(d), T(t_max))
     np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
     np.testing.assert_array_equal(st.valid.numpy(), np.asarray(sj.valid))
     v = st.valid.numpy()

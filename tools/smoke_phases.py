@@ -3,9 +3,10 @@ headline render of its phase 4 that phase 16 is held to.
 
     python tools/smoke_phases.py [PHASE ...]
 
-PHASE is any of 16, 17, 18, 19, 20, 21 (default: 16 17). Builds the kernels,
-renders the Cornell headline (512x512, spp 32, path/MIS depth 4) through
-``render()`` after one warm-up pass, then runs the phases asked for, each
+PHASE is any of 16, 17, 18, 19, 20, 21, 22 (default: 16 17). Builds the
+kernels, renders the Cornell headline (512x512, spp 32, path/MIS depth 4)
+through ``render()`` after one warm-up pass, then runs the phases asked
+for, each
 printing its lines as in the smoke: ``chip_smoke.sharded_phase`` (16:
 ``render_distributed`` at world size 1 over NCCL, two spawned ranks on the
 card over gloo, config 5's sharded train step),
@@ -14,8 +15,11 @@ card over gloo, config 5's sharded train step),
 ``chip_smoke.raytracer_phase`` (18: the raytracer app, its resume),
 ``chip_smoke.shape_phase`` (19: the shape_test app on the card and the
 CPU), ``chip_smoke.scene_file_phase`` (20: the OBJ/PLY loaders and a JSON
-scene file) and ``chip_smoke.apps_phase`` (21: the eight validation apps
-on the card and the CPU); then one line of each phase's seconds. Phase
+scene file, loaded cold and warm through the octree cache),
+``chip_smoke.apps_phase`` (21: the eight validation apps on the card and
+the CPU) and ``chip_smoke.api_phase`` (22: the reference's call forms,
+alive fractions and effective rays/s from this run's s/pass); then one
+line of each phase's seconds. Phase
 16's config 5 line carries no 14b time (14b does not run here). Needs a
 CUDA card; imports nothing of JAX.
 """
@@ -63,6 +67,7 @@ def main():
         "19": lambda: cs.shape_phase(dev, card),
         "20": lambda: cs.scene_file_phase(dev, card),
         "21": lambda: cs.apps_phase(dev, card),
+        "22": lambda: cs.api_phase(dev, card, s_pass),
     }
     seconds = {"render_s_per_pass": s_pass}
     for name in sys.argv[1:] or ["16", "17"]:
