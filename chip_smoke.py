@@ -3,8 +3,12 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the CUDA
-toolkit; imports nothing of JAX. Phases, each printed on its own line; any
-failed check raises, so the script exits non-zero:
+toolkit; imports nothing of JAX. Every render() and canonical_render() on
+the card below runs its first pass eagerly and replays one captured CUDA
+graph for the others (integrator.PassGraph; phase 23 holds it to the eager
+loop), so phases 4, 7, 10-12 and 17a time the captured render. Phases, each
+printed on its own line; any failed check raises, so the script exits
+non-zero:
 
 0. refuse to run without a card; print the card's name and power limit;
 1. build (or load) the kernel library from csrc/ with nvcc, one process per
@@ -190,6 +194,20 @@ failed check raises, so the script exits non-zero:
    then alive_fractions on the card within ALIVE_RAYS rays a depth of the
    CPU's at API_CPU_RES (Cornell in the path, simple and walk modes, the
    mesh headline);
+23. (run after 12, while its scenes live) the captured pass: on the Cornell
+   headline (chunk 32, as phase 4), the mesh headline, the flagship, the
+   canonical frame (500x500, spp 100: the stratified walk) and the
+   sobol_global headline (17a), render() / canonical_render(), which
+   replay one captured CUDA graph (integrator.PassGraph) for every pass
+   after the first, against the eager loop of render_pass /
+   canonical_pass over the same Python indices (integrator.accumulate
+   without capture): the films bitwise equal and every kernel's launch
+   count equal; then one PassGraph captured alone (its seconds, the
+   memory its pool reserved, its launches a replay) and GRAPH_TURN_PASSES
+   eager passes against as many replays, timed in turns (eager, graph,
+   graph, eager, twice), each side's median s/pass; on the canonical
+   frame also the pass's three stratified walks alone, replayed from a
+   CUDA graph (walk_ms);
 13. (printed after 22) a JSON line of the kernels, with a row for each
    brute-force mode, each launch of 4b, each launch of 10b and 12b, the
    interpolation kernel and each case of its backward (9b); the rows of
@@ -235,6 +253,7 @@ from computational_ray_tracer_tpu_torch.ops import interp_kernel as ik
 from computational_ray_tracer_tpu_torch.ops import mesh_intersect_kernel as mik
 from computational_ray_tracer_tpu_torch.ops import octree as octmod
 from computational_ray_tracer_tpu_torch.ops import octree_kernel as okern
+from computational_ray_tracer_tpu_torch.ops import rng
 from computational_ray_tracer_tpu_torch.ops import sensor as sen
 from computational_ray_tracer_tpu_torch.ops import spectrum as spec
 from computational_ray_tracer_tpu_torch.ops import film as filmmod
@@ -297,6 +316,7 @@ TWO_RANK_LAYOUTS = ((2, 1), (1, 2))
 RANKS_TIMEOUT_S = 300       # 16b's deadline (their time: PERF.md section 5)
 # 17: the sobol_global sample values checked bit for bit, and the new
 # options and cameras of the 128x128 card-vs-CPU passes.
+GRAPH_TURN_PASSES = 8       # 23: passes a turn, eager or replayed
 GLOBAL_DIMS = range(13)
 GLOBAL_SAMPLES = (0, 31)
 NEW_OPTIONS = {
@@ -1093,16 +1113,10 @@ def compact_vs_full(phase, scene, camera, cfg, sample_idx):
 
 def zero_counts():
     """Every kernel's launch count to 0."""
-    mik.LAUNCHES = mik.LAUNCHES_ANYHIT = 0
-    okern.LAUNCHES_CLOSEST = okern.LAUNCHES_ANYHIT = 0
-    ik.LAUNCHES = ik.LAUNCHES_BACKWARD = 0
+    integ.add_launch_counts({k: -n for k, n in read_counts().items()})
 
 
-def read_counts():
-    return {"brute_closest": mik.LAUNCHES, "brute_anyhit": mik.LAUNCHES_ANYHIT,
-            "octree_closest": okern.LAUNCHES_CLOSEST,
-            "octree_anyhit": okern.LAUNCHES_ANYHIT, "interp": ik.LAUNCHES,
-            "interp_backward": ik.LAUNCHES_BACKWARD}
+read_counts = integ.launch_counts
 
 
 def timed_render(phase, scene, camera, cfg, rays_per_sample, card, film=None,
@@ -1132,7 +1146,7 @@ def timed_render(phase, scene, camera, cfg, rays_per_sample, card, film=None,
 
 def canonical_phase(dragon, dev, card):
     """Phase 12; returns the kernel-line row of the octree kernel on the
-    500x500 camera wavefront (12b)."""
+    500x500 camera wavefront (12b) and the canonical scene."""
     times = {}
     keep = lambda key: lambda s: times.__setitem__(key, s)
     t0 = time.perf_counter()
@@ -1192,7 +1206,119 @@ def canonical_phase(dragon, dev, card):
                             calls[0][1])
     row["launches"] = launches["closest"]
     print("phase12b", json.dumps(row), flush=True)
-    return row
+    return row, c_scene
+
+
+def walk_ms(cfg, dev):
+    """Milliseconds of one pass's stratified cycle walks (the lambda,
+    filter and lens draws of every pixel, on a device index), replayed
+    from a CUDA graph: what the masked steps cost a captured pass."""
+    s, (w, h) = cfg.sampler, cfg.resolution
+    pixel = torch.arange(w * h, device=dev)
+    idx = torch.zeros((), dtype=torch.int64, device=dev)
+    keys = [rng.hash_u32(pixel, dim, s.seed) for dim in (
+        integ.DIM_LAMBDA, integ.DIM_FILTER, integ.DIM_LENS)]
+    return per_launch_ms(lambda: [rng.permutation_element(idx, s.spp, k)
+                                  for k in keys], inner=1)
+
+
+def graph_case(name, setup, dev, card, chunk=1, canonical=False):
+    """One scene of phase 23 (see the module docstring)."""
+    scene, camera, cfg = setup
+    res, spp = cfg.resolution, cfg.sampler.spp
+    if canonical:
+        sensor = sen.PixelSensor.create()
+        pass_fn = lambda i: entry.canonical_pass(scene, camera, cfg, sensor,
+                                                 i)
+        captured = lambda: entry.canonical_render(res[0], spp,
+                                                  scene=scene)[1]
+    else:
+        flt, sensor = integ.make_filter(cfg), integ.make_sensor(cfg)
+        pass_fn = lambda i: integ.render_pass(scene, camera, cfg, flt,
+                                              sensor, i)
+        captured = lambda: integ.render(scene, camera, cfg, chunk=chunk)[0]
+    renders = {True: captured, False: lambda: integ.accumulate(
+        pass_fn, filmmod.Film.create(res, dev), spp, chunk)}
+    films, counts, render_s = {}, {}, {}
+    for graph in (False, True):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            films[graph] = renders[graph]()
+        torch.cuda.synchronize()
+        render_s[graph] = (time.perf_counter() - t0) / spp
+        counts[graph] = read_counts()
+    assert torch.equal(films[True].rgb_sum, films[False].rgb_sum) and \
+        torch.equal(films[True].weight_sum, films[False].weight_sum), \
+        f"{name}: the captured film differs from the eager film"
+    assert counts[True] == counts[False], f"{name}: launches {counts}"
+    assert films[True].spp_done == spp
+    del films
+
+    n = min(GRAPH_TURN_PASSES, spp)
+    with torch.no_grad():
+        pass_fn(0)    # its constants, as render()'s first pass
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        pg = integ.PassGraph(pass_fn, 0, res, dev)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        pool_mb = (torch.cuda.memory_reserved(dev) - reserved0) / 1e6
+        turns = {"eager": [], "graph": []}
+        for side in ("eager", "graph", "graph", "eager") * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if side == "eager":
+                integ.accumulate(pass_fn, filmmod.Film.create(res, dev), n,
+                                 chunk=n)
+            else:
+                pg.idx.fill_(0)
+                pg.run(n)
+            torch.cuda.synchronize()
+            turns[side].append((time.perf_counter() - t0) / n)
+        walk = walk_ms(cfg, dev) if canonical else None
+    launches = pg.launches
+    del pg
+    torch.cuda.empty_cache()
+    eager_s = statistics.median(turns["eager"])
+    graph_s = statistics.median(turns["graph"])
+    row = {"case": name, "res": res[0], "spp": spp, "chunk": chunk,
+           "films_bitwise": True, "launches": counts[True],
+           "render_s_per_pass_eager": render_s[False],
+           "render_s_per_pass_graph": render_s[True],
+           "turn_passes": n, "eager_s_per_pass": turns["eager"],
+           "graph_s_per_pass": turns["graph"],
+           "eager_median_s": eager_s, "graph_median_s": graph_s,
+           "eager_over_graph": eager_s / graph_s, "capture_s": capture_s,
+           "pool_mb": pool_mb, "launches_per_replay": launches,
+           "walk_ms": walk, "card": card}
+    print("phase23", json.dumps(row), flush=True)
+
+
+def graph_phase(dev, card, mesh_setup=None, c_scene=None):
+    """Phase 23; ``mesh_setup`` (phase 5's mesh headline) and ``c_scene``
+    (phase 12's canonical scene) are built here when not given."""
+    t_phase = time.perf_counter()
+    mesh_setup = mesh_setup or entry.mesh327k_setup(HEADLINE_RES, MESH_SPP,
+                                                    device=dev)
+    if c_scene is None:
+        c_scene = entry.canonical_scene(40, device=dev)
+    cornell = entry.cornell_setup(HEADLINE_RES, HEADLINE_SPP, dev)
+    global_cfg = dataclasses.replace(cornell[2], sampler=integ.SamplerConfig(
+        kind="sobol_global", spp=HEADLINE_SPP))
+    graph_case("cornell_headline", cornell, dev, card, chunk=HEADLINE_SPP)
+    graph_case("mesh_headline", mesh_setup, dev, card)
+    graph_case("flagship", entry.flagship_setup(
+        HEADLINE_RES, MESH_SPP, scene=mesh_setup[0], device=dev), dev, card)
+    graph_case("canonical", (c_scene,) + entry.canonical_view(
+        CANONICAL_RES, CANONICAL_SPP), dev, card, canonical=True)
+    graph_case("sobol_global_headline", cornell[:2] + (global_cfg,), dev,
+               card, chunk=HEADLINE_SPP)
+    print("phase23_s", json.dumps({"seconds": time.perf_counter() - t_phase}),
+          flush=True)
 
 
 def sync(dev):
@@ -2538,11 +2664,14 @@ def main():
     _, c_row = compact_vs_full("phase11", d_scene, d_camera, d_cfg, 0)
     print("phase11", json.dumps({**row, "image_mean": float(img.mean()),
                                  "compacted_pass": c_row}), flush=True)
-    del m_scene, d_scene, film
+    del d_scene, film
 
     # phase 12: the canonical frame
-    canonical_row = canonical_phase(dragon, dev, card)
+    canonical_row, c_scene = canonical_phase(dragon, dev, card)
     del dragon
+    # phase 23: the captured pass, on the scenes of phases 4-12
+    graph_phase(dev, card, (m_scene, m_camera, m_cfg), c_scene)
+    del m_scene, c_scene
 
     # phase 14: training at full width
     train_launches, c5_call, train_s_step = config5_phase(dev, card)

@@ -313,28 +313,30 @@ def _on(x, device):
 
 @functools.lru_cache(maxsize=4)
 def _canonical_spectra(device):
-    """The canonical Li's spectra on ``device``: the F1 illuminant, the
-    white illuminant and the 0.5 gray albedo."""
+    """The canonical Li's constants on ``device``: the F1 illuminant, the
+    white illuminant, the 0.5 gray albedo and the light direction."""
     return (spec.DenselySampledSpectrum.from_named("stdillum-F1", device),
             _on(colorlib.RGBIlluminantSpectrum.from_rgb((1.0, 1.0, 1.0)),
                 device),
             _on(colorlib.RGBAlbedoSpectrum.from_rgb((0.5, 0.5, 0.5)),
-                device))
+                device),
+            torch.tensor(CANONICAL_LIGHT_WI, device=device))
 
 
 def canonical_pass(scene, camera, cfg, sensor, sample_idx):
     """One sample pass of the canonical frame (``canonical.make_pass``):
     (rgb (H, W, 3), weight (H, W)). Li at a hit is 0.3 F1(lambda) +
     max(n . (0, 0, -1), 0) white(lambda) gray(lambda); no shadow rays; the
-    sensor RGB is clamped to [0, 1]."""
+    sensor RGB is clamped to [0, 1]. ``sample_idx``: a Python int or a 0-d
+    integer tensor on the scene's device (the same values)."""
     w, h = cfg.resolution
     dev = scene.device
     pixel, wl, fw, o, d = integ.camera_wavefront(
-        camera, cfg, integ.make_filter(cfg), int(sample_idx), dev)
+        camera, cfg, integ.make_filter(cfg),
+        integ.sample_index(sample_idx, dev), dev)
     si, _, _ = scene_intersect(scene, o, d,
                                torch.full_like(o[..., 0], float("inf")))
-    f1, white, gray = _canonical_spectra(str(dev))
-    light_wi = torch.tensor(CANONICAL_LIGHT_WI, device=dev)
+    f1, white, gray, light_wi = _canonical_spectra(str(dev))
     cosw = torch.clamp(torch.sum(si.n * light_wi, dim=-1), 0.0, 1.0)
     L = 0.3 * f1(wl.lam) + cosw[..., None] * white(wl.lam) * gray(wl.lam)
     L = torch.where(si.valid[..., None], L, torch.zeros_like(L))
@@ -346,16 +348,18 @@ def canonical_pass(scene, camera, cfg, sensor, sample_idx):
 def canonical_render(res=500, spp=100, cap=40, scene=None, device="cuda"):
     """The canonical frame (``canonical.render``): ``spp`` passes
     accumulated into a film and resolved with the default resolve (sRGB
-    encode, clip). ``scene`` reuses a built ``canonical_scene``. Returns
-    (image (H, W, 3), film)."""
+    encode, clip). ``scene`` reuses a built ``canonical_scene``. On a CUDA
+    scene every pass after the first is a replay of one captured CUDA graph
+    (``integ.PassGraph``; the same bits as the eager loop). Returns (image
+    (H, W, 3), film)."""
     if scene is None:
         scene = canonical_scene(cap, device=device)
     camera, cfg = canonical_view(res, spp)
     sensor = sen.PixelSensor.create()
-    film = filmmod.Film.create((res, res), device=scene.device)
-    for i in range(spp):
-        rgb, wt = canonical_pass(scene, camera, cfg, sensor, i)
-        film = film.add_aligned(rgb, wt)
+    film = integ.accumulate(
+        lambda i: canonical_pass(scene, camera, cfg, sensor, i),
+        filmmod.Film.create((res, res), device=scene.device), spp,
+        capture=scene.device.type == "cuda")
     return film.resolve(sensor), film
 
 

@@ -25,6 +25,13 @@ Rendering is differentiable in the scene's material and light tables
 hit queries carry no gradient (as the reference's zero tangents), and the
 spectral cache's interpolation kernel has a backward kernel.
 
+A pass takes its sample index as a Python int or as a 0-d int64 tensor
+on the scene's device; on a tensor it reads nothing back to the host and
+makes no host copy, so ``render()`` on a CUDA scene captures one pass in
+a CUDA graph (:class:`PassGraph`, the reference's jitted ``chunk_pass``)
+and replays it for every pass after the first, stepping the index on the
+device; the films are the eager loop's bit for bit.
+
 ``render_pass_compact`` bounces only the alive rays from depth 1 on. Every
 sample is keyed by (pixel, sample, dim) and a dead ray's state no longer
 changes, so its image is the full wavefront's. ``render()`` runs the full
@@ -51,6 +58,9 @@ from computational_ray_tracer_tpu_torch.ops import spectrum as spec
 from computational_ray_tracer_tpu_torch.ops import filters as flt
 from computational_ray_tracer_tpu_torch.ops import sensor as sen
 from computational_ray_tracer_tpu_torch.ops import film as filmmod
+from computational_ray_tracer_tpu_torch.ops import interp_kernel as ik
+from computational_ray_tracer_tpu_torch.ops import mesh_intersect_kernel as mik
+from computational_ray_tracer_tpu_torch.ops import octree_kernel as okern
 from computational_ray_tracer_tpu_torch.ops import spectra_data as data
 from computational_ray_tracer_tpu_torch.ops.montecarlo import power_heuristic
 from computational_ray_tracer_tpu_torch.models import materials as mat
@@ -480,12 +490,22 @@ def camera_wavefront(camera, cfg: RenderConfig, filter_obj, sample_idx,
     return pixel, wl, fw, o, d
 
 
+def sample_index(sample_idx, device):
+    """The sample index as the samplers take it: a Python int, or a 0-d
+    int64 tensor on ``device`` (the device index a captured pass steps in
+    place; one already there is used as it is)."""
+    if isinstance(sample_idx, torch.Tensor):
+        return sample_idx.to(device=device, dtype=torch.int64).reshape(())
+    return int(sample_idx)
+
+
 def _pass_for_pixels(scene, camera, cfg: RenderConfig, filter_obj, sensor,
                      pixel, sample_idx):
     """One sample for each flat pixel id of ``pixel`` (None: every pixel):
     (sensor rgb (n, 3), filter weight (n,)). The one integrator dispatch of
-    render_pass and the sharded passes."""
-    sample_idx = int(sample_idx)
+    render_pass and the sharded passes. ``sample_idx``: a Python int or a
+    0-d integer tensor (the same values)."""
+    sample_idx = sample_index(sample_idx, scene.device)
     pixel, wl, fw, o, d = camera_wavefront(camera, cfg, filter_obj,
                                            sample_idx, scene.device, pixel)
     if cfg.integrator == "direct":
@@ -498,7 +518,9 @@ def _pass_for_pixels(scene, camera, cfg: RenderConfig, filter_obj, sensor,
 def render_pass(scene, camera, cfg: RenderConfig, filter_obj, sensor,
                 sample_idx):
     """One sample-per-pixel wavefront pass: (rgb (H, W, 3), weight (H, W))
-    ready for Film.add_aligned."""
+    ready for Film.add_aligned. ``sample_idx`` is a Python int or a 0-d
+    integer tensor on the scene's device; on a tensor the pass reads
+    nothing back to the host, so it can be captured in a CUDA graph."""
     w, h = cfg.resolution
     rgb, fw = _pass_for_pixels(scene, camera, cfg, filter_obj, sensor, None,
                                sample_idx)
@@ -552,18 +574,126 @@ def render_pass_compact(scene, camera, cfg: RenderConfig, filter_obj, sensor,
     return rgb.reshape(h, w, 3), fw.reshape(h, w)
 
 
-def render_passes(scene, camera, cfg: RenderConfig, filter_obj, sensor,
-                  sample_idx0, n_passes: int):
-    """n_passes samples per pixel accumulated as (rgb_sum, weight_sum)."""
-    w, h = cfg.resolution
-    rgb_sum = torch.zeros((h, w, 3), device=scene.device)
-    wt_sum = torch.zeros((h, w), device=scene.device)
+def _sum_passes(pass_fn, sample_idx0, n_passes, resolution, device):
+    """sum of rgb * weight and of weight over the passes ``pass_fn(i)``,
+    i = sample_idx0 .. sample_idx0 + n_passes - 1, in pass order."""
+    w, h = resolution
+    rgb_sum = torch.zeros((h, w, 3), device=device)
+    wt_sum = torch.zeros((h, w), device=device)
     for j in range(n_passes):
-        rgb, wt = render_pass(scene, camera, cfg, filter_obj, sensor,
-                              int(sample_idx0) + j)
+        rgb, wt = pass_fn(sample_idx0 + j)
         rgb_sum = rgb_sum + rgb * wt[..., None]
         wt_sum = wt_sum + wt
     return rgb_sum, wt_sum
+
+
+def render_passes(scene, camera, cfg: RenderConfig, filter_obj, sensor,
+                  sample_idx0, n_passes: int):
+    """n_passes samples per pixel accumulated as (rgb_sum, weight_sum), one
+    eager pass after another."""
+    return _sum_passes(lambda i: render_pass(scene, camera, cfg, filter_obj,
+                                             sensor, i),
+                       sample_index(sample_idx0, scene.device), n_passes,
+                       cfg.resolution, scene.device)
+
+
+# The kernel wrappers' launch counters: name -> (module, attribute).
+LAUNCH_COUNTERS = {
+    "brute_closest": (mik, "LAUNCHES"),
+    "brute_anyhit": (mik, "LAUNCHES_ANYHIT"),
+    "octree_closest": (okern, "LAUNCHES_CLOSEST"),
+    "octree_anyhit": (okern, "LAUNCHES_ANYHIT"),
+    "interp": (ik, "LAUNCHES"),
+    "interp_backward": (ik, "LAUNCHES_BACKWARD"),
+}
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count, by LAUNCH_COUNTERS name."""
+    return {key: getattr(mod, attr)
+            for key, (mod, attr) in LAUNCH_COUNTERS.items()}
+
+
+def add_launch_counts(counts):
+    """Add ``counts`` (a launch_counts dict) to the wrappers' counters."""
+    for key, n in counts.items():
+        mod, attr = LAUNCH_COUNTERS[key]
+        setattr(mod, attr, getattr(mod, attr) + n)
+
+
+class PassGraph:
+    """One sample pass captured as a CUDA graph, the port of the
+    reference's jitted ``chunk_pass``. Each replay runs ``pass_fn(idx)`` on
+    the device index ``idx`` (0-d int64, first ``sample_idx``), adds
+    rgb * weight and weight into the static sums ``rgb_sum`` /
+    ``weight_sum`` in the order of :func:`render_passes`, and steps ``idx``
+    by one. ``pass_fn`` must have run once eagerly before (kernel builds,
+    library handles). The kernel wrappers count a launch where they launch
+    it: the capture only records, so what it counted is taken back and
+    added again at each replay. A capture that fails raises."""
+
+    def __init__(self, pass_fn, sample_idx, resolution, device):
+        w, h = resolution
+        self.idx = torch.full((), int(sample_idx), dtype=torch.int64,
+                              device=device)
+        self.rgb_sum = torch.zeros((h, w, 3), device=device)
+        self.weight_sum = torch.zeros((h, w), device=device)
+        before = launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                rgb, wt = pass_fn(self.idx)
+                self.rgb_sum.add_(rgb * wt[..., None])
+                self.weight_sum.add_(wt)
+                self.idx.add_(1)
+        finally:
+            self.launches = {key: n - before[key]
+                             for key, n in launch_counts().items()}
+            add_launch_counts({key: -n for key, n in self.launches.items()})
+
+    def run(self, n_passes, rgb_sum=None, weight_sum=None):
+        """Replay ``n_passes`` passes onto (rgb_sum, weight_sum) (None:
+        zeros); returns the static sums, which the next run overwrites."""
+        if rgb_sum is None:
+            self.rgb_sum.zero_()
+            self.weight_sum.zero_()
+        else:
+            self.rgb_sum.copy_(rgb_sum)
+            self.weight_sum.copy_(weight_sum)
+        for _ in range(n_passes):
+            self.graph.replay()
+            add_launch_counts(self.launches)
+        return self.rgb_sum, self.weight_sum
+
+
+def accumulate(pass_fn, film, stop, chunk=1, progress=None, capture=False):
+    """Passes film.spp_done .. stop - 1 of ``pass_fn(sample_idx)`` -> (rgb,
+    weight) summed ``chunk`` at a time (:func:`render_passes`' order) and
+    each sum added to the film; ``progress(i, film)`` after each. With
+    ``capture`` the first pass runs eagerly and every later one is a
+    replay of one :class:`PassGraph` (the same bits)."""
+    h, w = film.weight_sum.shape
+    resolution, device = (w, h), film.weight_sum.device
+    i = int(film.spp_done)
+    graph = None
+    while i < stop:
+        n = min(chunk, stop - i)
+        if graph is not None:
+            rgb_sum, wt_sum = graph.run(n)
+        else:
+            first = 1 if capture else n
+            rgb_sum, wt_sum = _sum_passes(pass_fn, i, first, resolution,
+                                          device)
+            if capture and i + 1 < stop:
+                graph = PassGraph(pass_fn, i + 1, resolution, device)
+                if n > first:
+                    rgb_sum, wt_sum = graph.run(n - first, rgb_sum, wt_sum)
+        film = filmmod.Film(film.rgb_sum + rgb_sum, film.weight_sum + wt_sum,
+                            film.spp_done + n)
+        i += n
+        if progress is not None:
+            progress(i - 1, film)
+    return film
 
 
 @torch.no_grad()
@@ -571,32 +701,23 @@ def render(scene, camera, cfg: RenderConfig, film=None, progress=None,
            passes=None, chunk=1):
     """Progressive render: cfg.sampler.spp passes accumulated into a Film.
     Resume from ``film`` (continues at ``film.spp_done``); ``passes`` stops
-    early; ``chunk`` passes are summed before each film update. With
+    early; ``chunk`` passes are summed before each film update. On a CUDA
+    scene every pass after the first is a replay of one captured CUDA graph
+    (:class:`PassGraph`, the reference's one device program a chunk; the
+    same bits as the eager loop, :func:`accumulate` without capture). With
     ``cfg.compact`` (and a multi-bounce integrator) each pass goes through
-    :func:`render_pass_compact`, one pass a film update, as the
+    :func:`render_pass_compact`, one pass a film update, eagerly, as the
     reference's; the values are the full wavefront's."""
     filter_obj = make_filter(cfg)
     sensor = make_sensor(cfg)
     if film is None:
         film = filmmod.Film.create(cfg.resolution, device=scene.device)
-    use_compact = cfg.compact and cfg.integrator != "direct"
-    start = int(film.spp_done)
-    stop = cfg.sampler.spp if passes is None else min(cfg.sampler.spp,
-                                                      start + passes)
-    i = start
-    while i < stop:
-        if use_compact:
-            n = 1
-            rgb, wt = render_pass_compact(scene, camera, cfg, filter_obj,
-                                          sensor, i)
-            rgb_sum, wt_sum = rgb * wt[..., None], wt
-        else:
-            n = min(chunk, stop - i)
-            rgb_sum, wt_sum = render_passes(scene, camera, cfg, filter_obj,
-                                            sensor, i, n)
-        film = filmmod.Film(film.rgb_sum + rgb_sum, film.weight_sum + wt_sum,
-                            film.spp_done + n)
-        i += n
-        if progress is not None:
-            progress(i - 1, film)
+    stop = cfg.sampler.spp if passes is None else min(
+        cfg.sampler.spp, int(film.spp_done) + passes)
+    compact = cfg.compact and cfg.integrator != "direct"
+    one_pass = render_pass_compact if compact else render_pass
+    film = accumulate(
+        lambda i: one_pass(scene, camera, cfg, filter_obj, sensor, i), film,
+        stop, 1 if compact else chunk, progress,
+        not compact and scene.device.type == "cuda")
     return film, sensor

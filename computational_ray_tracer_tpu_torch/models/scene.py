@@ -239,8 +239,7 @@ def scene_surface(scene: Scene, o, d, hit):
     z3 = torch.zeros_like(o)
     si = shp.SurfaceInfo(
         t=t_hit, valid=torch.zeros(batch, dtype=torch.bool, device=o.device),
-        p=z3, n=torch.zeros_like(o) + torch.tensor([0.0, 0.0, 1.0],
-                                                   device=o.device),
+        p=z3, n=torch.cat([z3[..., :2], torch.ones_like(o[..., :1])], -1),
         uv=torch.zeros(batch + (2,), device=o.device), dpdu=z3, dpdv=z3,
         wo=-d, backface=torch.zeros(batch, dtype=torch.bool, device=o.device))
     mat_id = torch.zeros(batch, dtype=torch.int64, device=o.device)

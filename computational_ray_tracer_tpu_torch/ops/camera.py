@@ -12,6 +12,7 @@ conjugate equation)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -41,6 +42,17 @@ def look_at_basis(eye, target, up=(0.0, 1.0, 0.0)):
     return look, right, np.cross(look, right)
 
 
+@functools.lru_cache(maxsize=64)
+def _frame(basis, position, device):
+    """The camera-to-world rotation (columns right, up, look) and the
+    position as float32 on ``device``, built once per camera and device:
+    a pass makes no host copy."""
+    look, right, up = basis
+    return (torch.as_tensor(np.stack([right, up, look], axis=1),
+                            dtype=torch.float32, device=device),
+            torch.as_tensor(position, dtype=torch.float32, device=device))
+
+
 @dataclasses.dataclass(frozen=True)
 class CameraBase:
     """Film geometry and world placement; a subclass gives the
@@ -56,11 +68,8 @@ class CameraBase:
     def generate_rays(self, pixel_xy, u_lens):
         """(..., 2) raster coords + (..., 2) lens uniforms -> world (o, d)."""
         o, d = self._rays_camera_space(pixel_xy, u_lens)
-        look, right, up = self.basis
-        m = torch.as_tensor(np.stack([right, up, look], axis=1),
-                            dtype=torch.float32, device=d.device)
-        pos = torch.as_tensor(self.position, dtype=torch.float32,
-                              device=d.device)
+        m, pos = _frame(tuple(map(tuple, self.basis)), tuple(self.position),
+                        str(d.device))
         o = o @ m.T + pos
         d = d @ m.T
         return o, d / torch.linalg.norm(d, dim=-1, keepdim=True)

@@ -75,29 +75,42 @@ def independent_2d(seed, pixel, sample_idx, dim):
 
 def permutation_element(i, n: int, p):
     """Random permutation of [0, n) evaluated at i, keyed by p (Kensler
-    cycle walking over the next power of two)."""
-    i = _u32(i)
+    cycle walking over the next power of two).
+
+    The walk is exactly (w + 1) - n masked steps, with no host read:
+    ``scramble`` is a bijection on [0, w + 1), so the orbit of an i < n
+    reaches a value < n within the (w + 1) - n values >= n, and the result
+    is the reference's loop's bit for bit. For an i >= n whose cycle holds
+    no value < n (the reference's loop does not end there) the result is
+    (x + p) mod n of the last step's x."""
     p = _u32(p)
     w = max(n, 1) - 1
     for s in (1, 2, 4, 8, 16):
         w |= w >> s
+    # (x * c) & w depends only on x & w; below 2^31 the int64 product of a
+    # w-masked x and a 32-bit constant does not overflow.
+    mul = _mul if w >> 31 else (lambda x, c: x * c)
+    keys = (p & w, (p >> 16) & w)
 
     def scramble(x):
         for c_mul, c_xor, s in ((0x9E3779B9 | 1, 0x85EBCA6B, 5),
                                 (0xC2B2AE35 | 1, 0x27D4EB2F, 3),
                                 (0x165667B1 | 1, 0x9E3779B9, 7)):
-            x = _mul(x, c_mul) & w
+            x = mul(x, c_mul) & w
             x = x ^ (x >> s)
-            x = x ^ (p & w)
-            x = _mul(x, c_xor | 1) & w
-            x = x ^ ((p >> 16) & w)
+            x = x ^ keys[0]
+            x = mul(x, c_xor | 1) & w
+            x = x ^ keys[1]
             x = x ^ (x >> 2)
         return x & w
 
-    x = scramble(i)
+    x = scramble(_u32(i) & w)
     if n & (n - 1):
-        while bool((x >= n).any()):
-            x = torch.where(x >= n, scramble(x), x)
+        for _ in range(w + 1 - n):
+            if isinstance(x, torch.Tensor):
+                x = torch.where(x >= n, scramble(x), x)
+            elif x >= n:
+                x = scramble(x)
     return ((x + p) & MASK) % n
 
 
@@ -276,8 +289,8 @@ def sobol_sample_u32(index, dim):
     """Raw 32-bit Sobol' value of point ``index`` in dimension ``dim``."""
     device = _device_of(index, dim)
     index = _u32(index)
-    if not isinstance(index, torch.Tensor):
-        index = torch.tensor(index, dtype=torch.int64, device=device)
+    if not isinstance(index, torch.Tensor):    # a fill, not a host copy
+        index = torch.full((), index, dtype=torch.int64, device=device)
     cols = _sobol_table(device)[dim]                     # (..., 32)
     ks = torch.arange(32, dtype=torch.int64, device=device)
     v = cols * ((index[..., None] >> ks) & 1)
@@ -402,21 +415,38 @@ def _global_sobol_cols(m):
     return cols
 
 
+_GLOBAL_COLS_T = {}
+
+
+def _global_sobol_cols_t(m, device):
+    """:func:`_global_sobol_cols` as int64 on ``device``, built once per
+    (m, device)."""
+    key = (m, str(device))
+    if key not in _GLOBAL_COLS_T:
+        _GLOBAL_COLS_T[key] = torch.as_tensor(
+            _global_sobol_cols(m).astype(np.int64), device=device)
+    return _GLOBAL_COLS_T[key]
+
+
 def sobol_global_index(px, py, frame, m: int):
     """Index of the ``frame``-th global Sobol' point that lands in pixel
-    (px, py) of the 2^m x 2^m image. Requires frame < 2^(32-2m)."""
+    (px, py) of the 2^m x 2^m image. Requires frame < 2^(32-2m), which
+    RenderConfig checks on the host for every frame of a render. A Python
+    int frame places its point on the host, a tensor frame on the device;
+    neither reads a device value."""
     device = _device_of(px, py, frame)
     if m == 0:
         return _u32(frame) + torch.zeros_like(_u32(px))
-    i_hi = torch.as_tensor((_u32(frame) << (2 * m)) & MASK, device=device)
-    x0 = sobol_sample_u32(i_hi, 0)
-    x1 = sobol_sample_u32(i_hi, 1)
+    i_hi = (_u32(frame) << (2 * m)) & MASK
+    if isinstance(i_hi, torch.Tensor):
+        x0, x1 = sobol_sample_u32(i_hi, 0), sobol_sample_u32(i_hi, 1)
+    else:
+        x0, x1 = _sobol_u32_host(i_hi, 0), _sobol_u32_host(i_hi, 1)
     sh = 32 - m
     u = (((x0 >> sh) << m) & MASK) | (x1 >> sh)
     t = (((_u32(px) << m) & MASK) | _u32(py)) ^ u
     nbits = 2 * m
-    cols = torch.as_tensor(_global_sobol_cols(m).astype(np.int64),
-                           device=device)
+    cols = _global_sobol_cols_t(m, device)
     j = None
     for k in range(nbits):
         term = cols[k] * ((t >> (nbits - 1 - k)) & 1)

@@ -108,7 +108,7 @@ class PixelSensor:
         """(..., S) radiance + wavelengths -> (..., 3) sensor RGB:
         imaging ratio x mean over λ of b̄(λ)·L/pdf / ∫ȳ."""
         w = spec.safe_div(L, wl.pdf)
-        curves = torch.as_tensor(self.curves.T.copy(), device=L.device)
+        curves = self._on(L.device)[0]
         bars = spec.sample_dense_multi(curves, wl.lam)       # (..., S, 3)
         rgb = torch.mean(bars * w[..., None], dim=-2)
         if self.imaging_ratio != 1.0:     # x 1.0: no bit changes, no launch
@@ -116,5 +116,15 @@ class PixelSensor:
         return rgb / spec.CIE_Y_INTEGRAL
 
     def sensor_rgb_to_xyz(self, rgb):
-        m = torch.as_tensor(self.xyz_from_sensor_rgb, device=rgb.device)
-        return rgb @ m.T
+        return rgb @ self._on(rgb.device)[1].T
+
+    def _on(self, device):
+        """(curves (471, 3), xyz_from_sensor_rgb) as tensors on ``device``,
+        built once per device and kept: a pass makes no host copy."""
+        kept = self.__dict__.setdefault("_tensors", {})
+        key = str(device)
+        if key not in kept:
+            kept[key] = (torch.as_tensor(self.curves.T.copy(), device=device),
+                         torch.as_tensor(self.xyz_from_sensor_rgb,
+                                         device=device))
+        return kept[key]
