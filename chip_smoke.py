@@ -93,12 +93,15 @@ non-zero:
    inverse.albedo_and_emission_params: (a) one value and gradient on the
    card against the same on the CPU (the plain versions), every gradient
    finite, the emission gradient nonzero, each leaf within GRAD_REL of
-   max|g|; (b) TRAIN_STEPS Adam steps from the start scene, with every
-   launch count at 0 just before and read just after (the training
-   path's run): s/step, the loss at step 0 and after the last step (it
-   must fall), launches per step, the first CPU_LOSSES losses against the
-   CPU's; (c) one gradient of the Cornell headline pass (512x512, path/MIS
-   depth 4, the metal sphere): forward and backward seconds and peak
+   max|g|; (b) TRAIN_STEPS Adam steps from the start scene through
+   inverse.optimize (on the card step 0 eagerly, then replays of one
+   captured step, inverse.StepGraph; phase 24 holds it to the eager
+   loop), with every launch count at 0 just before and read just after
+   (the training path's run): s/step, the loss at step 0 and after the
+   last step (it must fall), launches per step, the first CPU_LOSSES
+   losses against the CPU's (torch.optim.Adam there, inverse.DeviceAdam
+   on the card); (c) one gradient of the Cornell headline pass (512x512,
+   path/MIS depth 4, the metal sphere): forward and backward seconds and peak
    memory, every gradient finite, its interpolation backward launch
    captured for 9b; (d) bench.py's bench_grad_check: the albedo gradient
    of a 32x32 Sobol spp 2 path depth 2 pass of the 1,280-triangle mesh
@@ -208,11 +211,26 @@ non-zero:
    graph, eager, twice), each side's median s/pass; on the canonical
    frame also the pass's three stratified walks alone, replayed from a
    CUDA graph (walk_ms);
+24. (run after 14b) the captured train step at full width: config 5 with
+   every leaf of inverse.albedo_and_emission_params; (a) one eager step of
+   the card's form (inverse.make_step with DeviceAdam) with every kernel
+   launch recorded, then each held to its plain version (the brute-force
+   kernel's two modes and the interpolation kernel bitwise, the backward
+   within BWD_REL of the sum of |terms|); one StepGraph captured alone
+   (its seconds, the memory its pool reserved, its launches a replay);
+   then TRAIN_STEPS steps through inverse.optimize (step 0 eagerly, step
+   1 captured, every later step a replay) and through the eager loop with
+   DeviceAdam, in the turns TRAIN_GRAPH_TURNS, every launch count at 0
+   before each run and read after it: the losses and the final parameters
+   of every run bitwise equal, the launches of both routes equal (each
+   step a replay's), the loss falling; s/step of each run (steady: the
+   eager loop from step 1, the replays from step 2) and the medians;
 13. (printed after 22) a JSON line of the kernels, with a row for each
    brute-force mode, each launch of 4b, each launch of 10b and 12b, the
    interpolation kernel and each case of its backward (9b); the rows of
    both brute-force modes, both octree modes and the interpolation
-   kernel also carry their launches in phases 18-22 (launches_by_phase)
+   kernel also carry their launches in phases 18-22 and 24, the backward's
+   config 5 row its launches in 24 (launches_by_phase)
    (CUDA-event medians: of 5 for
    the kernels, of 3 for the plain versions and the brute kernel at full
    mesh size, one run of the plain traversal in 10b and 12b; the brute
@@ -288,7 +306,8 @@ BWD_REL = 2e-5
 # 14a: the card's gradient against the CPU's, per leaf, as a share of the
 # CPU's max|g|: the two renders agree to 2e-3*max (the golden tolerance).
 GRAD_REL = 2e-3
-TRAIN_STEPS = 20            # 14b: 22-39 s on an H100 (PERF.md)
+TRAIN_STEPS = 20            # 14b and each turn of 24 (PERF.md section 5)
+TRAIN_GRAPH_TURNS = ("graph", "eager", "graph")   # 24: one eager run ~18 s
 CPU_LOSSES = 3              # 14b: the first losses checked on the CPU too
 # 14b: the card's first losses against the CPU's: the renders agree to
 # 2e-3*max and Adam's first updates are +-lr on every element, also where
@@ -1349,11 +1368,7 @@ def config5_phase(dev, card, scale="full", steps=TRAIN_STEPS):
     """Phases 14a and 14b (config 5 at ``scale``); returns (14b's launches,
     the first interpolation backward call of 14a's gradient, 14b's median
     seconds per step)."""
-    target, start, camera, cfg, lr, _ = entry.config5_setup(scale, dev)
-    render_image, _ = inv.make_render_fn(camera, cfg)
-    with torch.no_grad():
-        target_img = render_image(target)
-    ei = inv.albedo_and_emission_params(start)
+    start, camera, cfg, lr, target_img, ei = config5_start(dev, scale)
     loss_fn = inv.make_loss_fn(camera, cfg, ei, target_img)
     params = inv.leaf_params(ei[0](start))
     calls = []
@@ -1413,6 +1428,136 @@ def config5_phase(dev, card, scale="full", steps=TRAIN_STEPS):
         "launches_per_step": {k: v / steps for k, v in launches.items()},
         "card": card}), flush=True)
     return launches, calls[0] if calls else None, statistics.median(steps_s)
+
+
+def config5_start(dev, scale="full"):
+    """(start scene, camera, cfg, lr, target image, every leaf of
+    inverse.albedo_and_emission_params) of config 5 at ``scale``."""
+    _, start, camera, cfg, lr, _ = entry.config5_setup(scale, dev)
+    return (start, camera, cfg, lr, config5_target(dev, scale),
+            inv.albedo_and_emission_params(start))
+
+
+def step_launch_checks(dev, scale="full"):
+    """24a: every kernel launch of one eager training step of the card's
+    form (inverse.make_step with DeviceAdam) recorded, then (the counts
+    read) each held to its plain version: the brute-force kernel (both
+    modes) and the interpolation kernel bitwise, each backward launch
+    within BWD_REL of the sum of |terms| a cell gathers. Returns {kernel:
+    {"launches": checked, "max_abs_err": ...}}."""
+    start, camera, cfg, lr, target_img, ei = config5_start(dev, scale)
+    params = inv.leaf_params(ei[0](start))
+    step = inv.make_step(camera, cfg, ei, target_img, params, start,
+                         inv.DeviceAdam(list(params.values()), lr))
+    backward = []
+    keep = lambda g, i0, w, k: backward.append(
+        (g.contiguous().clone(), i0.clone(), w.clone(), k))
+    with wrapped(ik, "dense_interp_backward", before=keep):
+        _, calls = capture_all(step)
+    sync(dev)
+    held = held_to_plain(calls)
+    err = 0.0
+    for g, i0, w, k in backward:
+        got = ik.dense_interp_backward(g, i0, w, k)
+        plain = ik.dense_interp_backward_plain(g, i0, w, k)
+        terms = ik.dense_interp_backward_plain(g.abs().double(), i0,
+                                               w.double(), k)
+        diff = (got.double() - plain.double()).abs()
+        assert bool((diff <= BWD_REL * terms).all()), \
+            f"24a: backward differs by {float((diff / terms).max())}"
+        err = max(err, diff.max().item())
+    if backward:
+        held["dense_interp_backward"] = {"launches": len(backward),
+                                         "max_abs_err": err}
+    assert torch.device(dev).type != "cuda" or set(held) == {
+        "mesh_intersect", "mesh_anyhit", "dense_interp",
+        "dense_interp_backward"}, held
+    return held
+
+
+def train_graph_phase(dev, card, steps=TRAIN_STEPS):
+    """Phase 24 (see the module docstring); returns the launches of its
+    captured runs."""
+    t_phase = time.perf_counter()
+    held = step_launch_checks(dev)
+    start, camera, cfg, lr, target_img, ei = config5_start(dev)
+
+    # a StepGraph alone: its capture seconds and the memory its pool holds
+    params = inv.leaf_params(ei[0](start))
+    opt = inv.DeviceAdam(list(params.values()), lr)
+    step = inv.make_step(camera, cfg, ei, target_img, params, start, opt)
+    inv.on_side_stream(step)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    opt.zero_grad()
+    t0 = time.perf_counter()
+    graph = inv.StepGraph(step)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    pool_mb = (torch.cuda.memory_reserved(dev) - reserved0) / 1e6
+    launches_per_replay = graph.launches
+    del graph, step, opt, params
+    torch.cuda.empty_cache()
+
+    runs = {"graph": lambda tick: inv.optimize(
+                start, camera, cfg, ei, target_img, steps=steps, lr=lr,
+                callback=tick),
+            "eager": lambda tick: inv._optimize(
+                start, camera, cfg, ei, target_img, steps, lr, tick,
+                inv.DeviceAdam)}
+    ref, turns, counts = None, {"graph": [], "eager": []}, {}
+    for side in TRAIN_GRAPH_TURNS:
+        times = []
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        _, params, history = runs[side](
+            lambda *a: times.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        counts.setdefault(side, read_counts())
+        assert read_counts() == counts[side], f"24: {side} launches differ"
+        turns[side].append([b - a for a, b in zip([t0] + times, times)])
+        ref = ref or (params, history)
+        assert history == ref[1], f"24: the {side} losses differ"
+        assert all(torch.equal(params[k], ref[0][k]) for k in params), \
+            f"24: the {side} parameters differ"
+    history = ref[1]
+    assert counts["graph"] == counts["eager"], counts
+    assert history[-1] < history[0], f"24: loss {history[0]} -> {history[-1]}"
+    assert min(counts["graph"][k] for k in (
+        "brute_closest", "brute_anyhit", "interp", "interp_backward")) > 0, \
+        counts["graph"]
+    assert all(n == launches_per_replay[k] * steps
+               for k, n in counts["graph"].items()), launches_per_replay
+    # steady s/step: the eager loop from step 1, the replays from step 2
+    # (step 0 runs eagerly, step 1 is the capture and its first replay)
+    skip = {"graph": 2, "eager": 1}
+    steady = {side: [statistics.median(run[skip[side]:]) for run in runs_s]
+              for side, runs_s in turns.items()}
+    median = {side: statistics.median(s for run in runs_s
+                                      for s in run[skip[side]:])
+              for side, runs_s in turns.items()}
+    print("phase24", json.dumps({
+        "res": cfg.resolution[0], "spp": cfg.sampler.spp,
+        "depth": cfg.max_depth, "lr": lr, "steps": steps,
+        "turns": list(TRAIN_GRAPH_TURNS), "losses_bitwise": True,
+        "params_bitwise": True, "losses": history,
+        "launches_per_step": {k: v / steps
+                              for k, v in counts["graph"].items()},
+        "launches_per_replay": launches_per_replay,
+        "held_to_plain": held, "capture_s": capture_s, "pool_mb": pool_mb,
+        "s_per_step": steady,
+        "s_step0": {side: [run[0] for run in runs_s]
+                    for side, runs_s in turns.items()},
+        "s_step1": {side: [run[1] for run in runs_s]
+                    for side, runs_s in turns.items()},
+        "graph_median_s_per_step": median["graph"],
+        "eager_median_s_per_step": median["eager"],
+        "eager_over_graph": median["eager"] / median["graph"],
+        "phase_s": time.perf_counter() - t_phase, "card": card}),
+        flush=True)
+    return counts["graph"]
 
 
 def headline_grad_phase(dev, card, res=HEADLINE_RES):
@@ -2336,10 +2481,11 @@ def apps_phase(dev, card, sizes=None):
 
 
 def held_to_plain(calls):
-    """Each captured launch of phase 22 against its kernel's plain version,
-    as phases 4b, 10b and 21 hold them (after the counts are read): the
-    brute kernel and the interpolation kernel bitwise, the octree kernel's
-    any hit exactly and its closest hit by hits_agree over the live rays.
+    """Each captured launch of phases 22 and 24a against its kernel's
+    plain version, as phases 4b, 10b and 21 hold them (after the counts
+    are read): the brute kernel and the interpolation kernel bitwise, the
+    octree kernel's any hit exactly and its closest hit by hits_agree over
+    the live rays.
     Returns {kernel: {"launches": checked, "max_abs_err": ...}}."""
     out = {}
 
@@ -2678,6 +2824,8 @@ def main():
     backward_rows.append(interp_backward_case("d_config5_cache", *c5_call))
     backward_graph_check("d_config5_cache", *c5_call)
     backward_rows[-1]["launches"] = train_launches["interp_backward"]
+    # phase 24: config 5's captured train step against its eager loop
+    train_graph_launches = train_graph_phase(dev, card)
     headline_call = headline_grad_phase(dev, card)
     backward_rows.insert(1, interp_backward_case("b_cornell_headline_cache",
                                                  *headline_call))
@@ -2698,6 +2846,7 @@ def main():
                     "21": apps_phase(dev, card)}
     # phase 22: the reference's call forms on the card
     app_launches["22"] = api_phase(dev, card, headline_s_pass)
+    app_launches["24"] = train_graph_launches
     by_phase = lambda key: {"launches_by_phase": {
         p: n[key] for p, n in app_launches.items() if n[key]}}
 
@@ -2741,7 +2890,8 @@ def main():
                                              else "_" + r["case"]),
                   "dense_interp.cu", BACKWARD_REPLACES,
                   r.get("launches", 0), r, r["max_abs_err"]),
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"],
+         **(by_phase("interp_backward") if r is backward_rows[-1] else {})}
         for r in [backward_rows[-1]] + backward_rows[:-1]] + [
             kernel(f"octree_{r['case']}", "octree_traverse.cu", octree_src,
                    r["launches"], r, r["max_abs_err"])

@@ -621,6 +621,22 @@ def add_launch_counts(counts):
         setattr(mod, attr, getattr(mod, attr) + n)
 
 
+def capture_counted(graph, fn):
+    """``fn()`` captured into the CUDA graph ``graph``; returns (its output,
+    the launches it counted). The kernel wrappers count a launch where
+    they launch it and a capture only records, so what it counted is taken
+    back here and a replay adds it again. A capture that fails raises."""
+    before = launch_counts()
+    try:
+        with torch.cuda.graph(graph):
+            out = fn()
+    finally:
+        launches = {key: n - before[key]
+                    for key, n in launch_counts().items()}
+        add_launch_counts({key: -n for key, n in launches.items()})
+    return out, launches
+
+
 class PassGraph:
     """One sample pass captured as a CUDA graph, the port of the
     reference's jitted ``chunk_pass``. Each replay runs ``pass_fn(idx)`` on
@@ -628,9 +644,8 @@ class PassGraph:
     rgb * weight and weight into the static sums ``rgb_sum`` /
     ``weight_sum`` in the order of :func:`render_passes`, and steps ``idx``
     by one. ``pass_fn`` must have run once eagerly before (kernel builds,
-    library handles). The kernel wrappers count a launch where they launch
-    it: the capture only records, so what it counted is taken back and
-    added again at each replay. A capture that fails raises."""
+    library handles). Each replay adds the capture's launches to the
+    counters (:func:`capture_counted`). A capture that fails raises."""
 
     def __init__(self, pass_fn, sample_idx, resolution, device):
         w, h = resolution
@@ -638,18 +653,14 @@ class PassGraph:
                               device=device)
         self.rgb_sum = torch.zeros((h, w, 3), device=device)
         self.weight_sum = torch.zeros((h, w), device=device)
-        before = launch_counts()
+
+        def one_pass():
+            rgb, wt = pass_fn(self.idx)
+            self.rgb_sum.add_(rgb * wt[..., None])
+            self.weight_sum.add_(wt)
+            self.idx.add_(1)
         self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph):
-                rgb, wt = pass_fn(self.idx)
-                self.rgb_sum.add_(rgb * wt[..., None])
-                self.weight_sum.add_(wt)
-                self.idx.add_(1)
-        finally:
-            self.launches = {key: n - before[key]
-                             for key, n in launch_counts().items()}
-            add_launch_counts({key: -n for key, n in self.launches.items()})
+        _, self.launches = capture_counted(self.graph, one_pass)
 
     def run(self, n_passes, rgb_sum=None, weight_sum=None):
         """Replay ``n_passes`` passes onto (rgb_sum, weight_sum) (None:

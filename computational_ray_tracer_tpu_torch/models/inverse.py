@@ -10,9 +10,16 @@ gradients are out of scope, as in the reference.
 
 Parameters are plain dicts of leaf tensors; ``extract``/``insert`` move
 them out of and into a Scene with ``dataclasses.replace`` (the Scene caches
-nothing derived from albedo, emission or light scale). :func:`optimize` is
-``torch.optim.Adam``, whose defaults (β 0.9/0.999, ε 1e-8 added after the
-square root) are ``optax.adam``'s.
+nothing derived from albedo, emission or light scale).
+
+:func:`optimize` is the reference's Adam loop. On a CUDA scene its step 0
+runs eagerly and every later step is a replay of one captured CUDA graph
+(:class:`StepGraph`, the port of the reference's jitted ``step``: zero the
+gradients, the loss forward, its backward and the Adam update), with
+:class:`DeviceAdam`, ``optax.adam``'s update in float32 tensor ops whose step
+count stays on the device. On the CPU it is ``torch.optim.Adam``, whose
+defaults (β 0.9/0.999, ε 1e-8 added after the square root) are
+``optax.adam``'s, and every step runs eagerly.
 """
 
 from __future__ import annotations
@@ -94,24 +101,136 @@ def leaf_params(params):
             for k, v in params.items()}
 
 
+class DeviceAdam:
+    """``optax.adam(lr)``'s update (the reference's optimizer) in float32
+    tensor ops on the parameters in place, with ``zero_grad``/``step`` as
+    ``torch.optim`` has them. The step count is a 0-d int32 tensor on the
+    parameters' device and the bias corrections are float32 tensors, so a
+    step reads nothing back to the host and can be captured in a CUDA
+    graph (``torch.optim.Adam`` reads its step count with ``.item()`` and
+    corrects in host float64). Each expression is optax's, in its order:
+    mu = (1-b1) g + b1 mu, nu = (1-b2) g^2 + b2 nu, the update
+    -lr (mu / (1-b1^t)) / (sqrt(nu / (1-b2^t)) + eps), p + update, with
+    optax's defaults b1, b2, eps."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, params, lr):
+        self.params = list(params)
+        self.lr = lr
+        self.count = torch.zeros((), dtype=torch.int32,
+                                 device=self.params[0].device)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    def zero_grad(self):
+        """Every gradient to None (a capture then takes them from its
+        pool)."""
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self):
+        self.count.add_(1)
+        b1, b2 = self.B1, self.B2
+        c1 = 1.0 - torch.pow(b1, self.count)
+        c2 = 1.0 - torch.pow(b2, self.count)
+        for p, mu, nu in zip(self.params, self.mu, self.nu):
+            g = p.grad
+            mu.copy_((1.0 - b1) * g + b1 * mu)
+            nu.copy_((1.0 - b2) * g ** 2 + b2 * nu)
+            p.add_(-self.lr * ((mu / c1) / (torch.sqrt(nu / c2) + self.EPS)))
+
+
+class StepGraph:
+    """One training step captured as a CUDA graph, the port of the
+    reference's jitted ``step``. ``step()`` zeroes the gradients (to None,
+    so the backward takes them from the graph's pool), runs the loss
+    forward and its backward and updates the parameters in place; it
+    returns the loss. It must have run once eagerly before (kernel builds,
+    the per-device constants, the optimizer's state). Each replay adds the
+    capture's launches to the counters (``integrator.capture_counted``). A
+    capture that fails raises."""
+
+    def __init__(self, step):
+        self.graph = torch.cuda.CUDAGraph()
+        self.loss, self.launches = integ.capture_counted(self.graph, step)
+
+    def run(self):
+        """Replay one step; returns the static loss, which the next replay
+        overwrites."""
+        self.graph.replay()
+        integ.add_launch_counts(self.launches)
+        return self.loss
+
+
+def on_side_stream(fn):
+    """fn() on a side stream that waits for the current one, which then
+    waits for it (the warm-up of PyTorch's whole-network capture)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    return out
+
+
 def optimize(scene, camera, cfg, extract_insert, target, steps=50, lr=2e-2,
              callback=None):
     """Adam descent on the scene's parameters against a target image.
     Returns (scene with the final parameters, the parameters, the loss
-    before each step)."""
-    extract, insert = extract_insert
+    before each step). ``callback(i, params, loss)`` after each step gets
+    copies of the parameters. On a CUDA scene step 0 runs eagerly and
+    every later step replays one :class:`StepGraph` with
+    :class:`DeviceAdam` (the same bits as the eager loop with it); on the
+    CPU every step runs eagerly with ``torch.optim.Adam``."""
+    if scene.device.type == "cuda":
+        return _optimize(scene, camera, cfg, extract_insert, target, steps,
+                         lr, callback, DeviceAdam, capture=True)
+    return _optimize(scene, camera, cfg, extract_insert, target, steps, lr,
+                     callback, torch.optim.Adam)
+
+
+def make_step(camera, cfg, extract_insert, target, params, scene, opt):
+    """The training step of :func:`optimize`: () -> the loss (detached)
+    of the parameters before the update, which ``opt`` then makes."""
     loss_fn = make_loss_fn(camera, cfg, extract_insert, target)
-    params = leaf_params(extract(scene))
-    opt = torch.optim.Adam(list(params.values()), lr=lr)
-    history = []
-    for i in range(steps):
+
+    def step():
         opt.zero_grad()
         loss = loss_fn(params, scene)
         loss.backward()
         opt.step()
-        history.append(float(loss.detach()))
+        return loss.detach()
+    return step
+
+
+def _optimize(scene, camera, cfg, extract_insert, target, steps, lr,
+              callback, adam, capture=False):
+    """:func:`optimize` with the optimizer class ``adam`` (``DeviceAdam``
+    or ``torch.optim.Adam``); with ``capture`` (a CUDA scene) step 0 runs
+    on a side stream and every later step replays one StepGraph, else
+    every step runs eagerly."""
+    extract, insert = extract_insert
+    params = leaf_params(extract(scene))
+    opt = adam(list(params.values()), lr=lr)
+    step = make_step(camera, cfg, extract_insert, target, params, scene, opt)
+    history, graph = [], None
+    for i in range(steps):
+        if graph is not None:
+            loss = graph.run()
+        elif capture and i == 0:
+            loss = on_side_stream(step)
+        elif capture:
+            opt.zero_grad()
+            graph = StepGraph(step)
+            loss = graph.run()
+        else:
+            loss = step()
+        history.append(float(loss))
         if callback:
-            callback(i, params, history[-1])
+            callback(i, {k: v.detach().clone() for k, v in params.items()},
+                     history[-1])
     params = {k: v.detach() for k, v in params.items()}
     return insert(scene, params), params, history
 

@@ -1,4 +1,4 @@
-"""chip_smoke.py's training phases (9b, 14, 15) on CPU tensors at small
+"""chip_smoke.py's training phases (9b, 14, 15, 24a) on CPU tensors at small
 sizes, with the host clock in place of CUDA events: every check they make
 on the card runs here against the plain versions, so a fault in the phases
 themselves shows before a chip run."""
@@ -67,6 +67,22 @@ def test_training_phases_run_on_cpu(cs, capsys):
         assert phase + " " in out
     assert out.count("phase15 ") == len(cs.RENDER_OPTIONS)
     assert ik.LAUNCHES_BACKWARD == 0
+
+
+def test_step_launch_checks_run_on_cpu(monkeypatch):
+    """Phase 24a's helper at config 5's small scale (32x32, spp 4, depth
+    3; the plain version in place of the brute-force kernel's bare
+    launch): one step of the card's form (DeviceAdam) records every call
+    of the brute-force and interpolation wrappers (their plain versions
+    here: 3 closest-hit and 3 any-hit calls and 2 interpolations a pass)
+    and holds each to its plain version; the backward kernel's wrapper is
+    called on the card only (the CPU's autograd differentiates the plain
+    lerp)."""
+    from test_torch_intersect import _smoke_on_host_clock as brute_on_host
+    held = brute_on_host(monkeypatch).step_launch_checks("cpu", "small")
+    assert {k: r["launches"] for k, r in held.items()} == {
+        "mesh_intersect": 12, "mesh_anyhit": 12, "dense_interp": 8}
+    assert all(r["max_abs_err"] == 0.0 for r in held.values())
 
 
 def test_sharded_and_option_phases_run_on_cpu(cs, capsys, monkeypatch):

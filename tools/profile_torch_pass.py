@@ -3,7 +3,7 @@ time, eager and as a replay of a captured CUDA graph.
 
     python tools/profile_torch_pass.py
         [--scene cornell|mesh327k|flagship|deep512|canonical ...]
-        [--res N] [--reps 5] [--out DIR]
+        [--train] [--res N] [--reps 5] [--out DIR]
 
 Runs the Cornell headline scene (``--scene cornell``, the default:
 ``computational_ray_tracer_tpu_torch.entry.cornell_setup``, path/MIS depth
@@ -31,6 +31,16 @@ top device kernels) and the capture's seconds, and writes the same JSON
 and each side's chrome trace to ``--out`` (by default the package's
 git-ignored build directory), named after the scene. Needs a CUDA card;
 imports nothing of JAX.
+
+``--train`` profiles one training step of BASELINE config 5 instead
+(``entry.config5_setup("full")``: 48x48, Sobol spp 8, path/MIS depth 3,
+every leaf of ``inverse.albedo_and_emission_params``; the step
+``inverse.optimize`` runs on the card: zero the gradients, the 8 passes and
+the MSE, the backward, ``inverse.DeviceAdam``), in the same two sides: the
+eager step, then the step captured in an ``inverse.StepGraph`` and
+replayed; the row also carries the kernel wrappers' launches a step and
+the share of the interpolation backward kernel. Its files are named
+``config5_train``.
 """
 
 import argparse
@@ -48,6 +58,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from computational_ray_tracer_tpu_torch import entry  # noqa: E402
 from computational_ray_tracer_tpu_torch.models import (  # noqa: E402
     integrator as integ)
+from computational_ray_tracer_tpu_torch.models import (  # noqa: E402
+    inverse as inv)
 from computational_ray_tracer_tpu_torch.ops import sensor as sen  # noqa: E402
 
 SCENES = ("cornell", "mesh327k", "flagship", "deep512", "canonical")
@@ -106,6 +118,7 @@ def measure(run, reps):
         "octree_kernel_launches": sum(v[1] for n, v in kernels.items()
                                       if "octree_traverse" in n),
         "interp_kernel_share_of_busy": share("dense_interp"),
+        "interp_backward_share_of_busy": share("dense_interp_backward"),
         "n_kernel_launches": sum(v[1] for v in kernels.values()),
         "top": [{"name": n[:90], "us": v[0], "count": v[1]}
                 for n, v in top]}
@@ -132,10 +145,52 @@ def setup(name, res, dev):
                                         i)), cfg.resolution
 
 
+def profile_train(reps, out, dev):
+    """The --train row: one config 5 step, eager, then replayed."""
+    target, start, camera, cfg, lr, _ = entry.config5_setup("full", dev)
+    render_image, _ = inv.make_render_fn(camera, cfg)
+    with torch.no_grad():
+        target_img = render_image(target)
+    ei = inv.albedo_and_emission_params(start)
+    params = inv.leaf_params(ei[0](start))
+    opt = inv.DeviceAdam(list(params.values()), lr)
+    step = inv.make_step(camera, cfg, ei, target_img, params, start, opt)
+    inv.on_side_stream(step)
+    before = integ.launch_counts()
+    step()
+    launches = {k: n - before[k] for k, n in integ.launch_counts().items()}
+    prof, eager = measure(step, reps)
+    prof.export_chrome_trace(os.path.join(out, "config5_train_trace.json"))
+    opt.zero_grad()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = inv.StepGraph(step)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    prof, replay = measure(graph.run, reps)
+    prof.export_chrome_trace(os.path.join(out,
+                                          "config5_train_graph_trace.json"))
+    assert graph.launches == launches, (graph.launches, launches)
+    return {"scene": "config5_train", "res": cfg.resolution[0],
+            "spp": cfg.sampler.spp, "depth": cfg.max_depth,
+            "wrapper_launches_per_step": launches, "eager": eager,
+            "graph": {**replay, "capture_s": capture_s},
+            "card": torch.cuda.get_device_name(0)}
+
+
+def emit(row, out):
+    """Write ``row`` to ``out``/<scene>_profile.json and print it."""
+    with open(os.path.join(out, f"{row['scene']}_profile.json"), "w") as f:
+        json.dump(row, f, indent=1)
+    print(json.dumps(row), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", nargs="+", choices=SCENES,
-                    default=["cornell"])
+    ap.add_argument("--scene", nargs="+", choices=SCENES, default=None,
+                    help="default: cornell, unless --train is given")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one config 5 training step")
     ap.add_argument("--res", type=int, default=None,
                     help="image side (default 500 for canonical, else 512)")
     ap.add_argument("--reps", type=int, default=5)
@@ -146,7 +201,9 @@ def main():
         raise SystemExit("profile_torch_pass.py needs a CUDA device")
     dev = torch.device("cuda", 0)
     os.makedirs(args.out, exist_ok=True)
-    for name in args.scene:
+    if args.train:
+        emit(profile_train(args.reps, args.out, dev), args.out)
+    for name in args.scene or ([] if args.train else ["cornell"]):
         res = args.res or (500 if name == "canonical" else 512)
         one_pass, resolution = setup(name, res, dev)
         with torch.no_grad():
@@ -164,12 +221,9 @@ def main():
                 args.out, f"{name}_graph_trace.json"))
         del graph
         torch.cuda.empty_cache()
-        row = {"scene": name, "res": res, "eager": eager,
-               "graph": {**replay, "capture_s": capture_s},
-               "card": torch.cuda.get_device_name(0)}
-        with open(os.path.join(args.out, f"{name}_profile.json"), "w") as f:
-            json.dump(row, f, indent=1)
-        print(json.dumps(row), flush=True)
+        emit({"scene": name, "res": res, "eager": eager,
+              "graph": {**replay, "capture_s": capture_s},
+              "card": torch.cuda.get_device_name(0)}, args.out)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@ headline render of its phase 4 that phase 16 is held to.
 
     python tools/smoke_phases.py [PHASE ...]
 
-PHASE is any of 16, 17, 18, 19, 20, 21, 22, 23 (default: 16 17). Builds the
+PHASE is any of 16, 17, 18, 19, 20, 21, 22, 23, 24 (default: 16 17). Builds the
 kernels, renders the Cornell headline (512x512, spp 32, path/MIS depth 4)
 through ``render()`` after one warm-up pass, then runs the phases asked
 for, each
@@ -20,8 +20,10 @@ scene file, loaded cold and warm through the octree cache),
 the CPU) and ``chip_smoke.api_phase`` (22: the reference's call forms,
 alive fractions and effective rays/s from this run's s/pass) and
 ``chip_smoke.graph_phase`` (23: the captured pass against the eager loop
-on five scenes, building the mesh and canonical scenes); then one line of
-each phase's seconds. Phase
+on five scenes, building the mesh and canonical scenes) and
+``chip_smoke.train_graph_phase`` (24: config 5's captured train step
+against its eager loop, in turns); then one line of each phase's
+seconds. Phase
 16's config 5 line carries no 14b time (14b does not run here). Needs a
 CUDA card; imports nothing of JAX.
 """
@@ -71,6 +73,7 @@ def main():
         "21": lambda: cs.apps_phase(dev, card),
         "22": lambda: cs.api_phase(dev, card, s_pass),
         "23": lambda: cs.graph_phase(dev, card),
+        "24": lambda: cs.train_graph_phase(dev, card),
     }
     seconds = {"render_s_per_pass": s_pass}
     for name in sys.argv[1:] or ["16", "17"]:
