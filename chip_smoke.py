@@ -99,9 +99,9 @@ non-zero:
    loop), with every launch count at 0 just before and read just after
    (the training path's run): s/step, the loss at step 0 and after the
    last step (it must fall), launches per step, the first CPU_LOSSES
-   losses against the CPU's (torch.optim.Adam there, inverse.DeviceAdam
-   on the card); (c) one gradient of the Cornell headline pass (512x512,
-   path/MIS depth 4, the metal sphere): forward and backward seconds and peak
+   losses against the CPU's (inverse.DeviceAdam on both); (c) one
+   gradient of the Cornell headline pass (512x512, path/MIS depth 4, the
+   metal sphere): forward and backward seconds and peak
    memory, every gradient finite, its interpolation backward launch
    captured for 9b; (d) bench.py's bench_grad_check: the albedo gradient
    of a 32x32 Sobol spp 2 path depth 2 pass of the 1,280-triangle mesh
@@ -114,19 +114,32 @@ non-zero:
    named sensor on the card against the same pass on the CPU, at atol
    2e-3*max, with the kernels' launches;
 16. the sharded paths at full width (parallel/sharding.py): (a) the
-   Cornell headline (512x512, spp 32, path/MIS depth 4, brute kernel)
-   through render_distributed at world size 1 over NCCL, held to phase 4's
-   film (rtol 1e-5 / atol 2e-6; bitwise equality reported), s/pass; (b)
-   the same with two ranks on the one card over gloo with CUDA tensors
-   (NCCL takes one rank a device), layouts (dp, sp) = (2, 1) and (1, 2),
-   each rank's kernel launches counted and its scene's bits hashed;
-   (c) config 5's sharded train step (48x48, depth 3, every leaf of
-   inverse.albedo_and_emission_params) at world size 1 (1, 1) and 2
-   ((2, 1), (1, 2)): the gradient averaged over the ranks against the
-   unsharded port's over the same samples on the card (rtol 1e-3, atol
-   1e-6 of max|g| per leaf), then 5 Adam steps on fixed samples (the
-   loss must fall) and s/step, with every rank's launches (the interp
-   backward included);
+   Cornell headline (512x512, spp 32, path/MIS depth 4, brute kernel) at
+   world size 1 over NCCL: one sharded render step captured alone
+   (sharding.RenderStepGraph: its capture seconds, spp - 1 replays
+   timed), then render_distributed (the first step eager, every later
+   one a replay of one captured step) and its eager steps
+   (make_sharded_render) in the turns SHARD_TURNS, every count at 0
+   before each run and read after: the films bitwise equal, the launches
+   equal (each captured step a replay's), s/pass of each run; the film
+   held to phase 4's (rtol 1e-5 / atol 2e-6; bitwise equality reported);
+   (b) the same with two ranks on the one card over gloo with CUDA
+   tensors (NCCL takes one rank a device; gloo's collectives cannot be
+   captured, so every step runs eagerly), layouts (dp, sp) = (2, 1) and
+   (1, 2), each rank's kernel launches counted and its scene's bits
+   hashed; (c) config 5's sharded train step (48x48, depth 3, every leaf
+   of inverse.albedo_and_emission_params): the gradient averaged over the
+   ranks against the unsharded port's over the same samples on the card
+   (rtol 1e-3, atol 1e-6 of max|g| per leaf), then at world size 1
+   SHARD_GRAPH_STEPS steps at samples 0, 1, ... with make_train_step's
+   default optimizer (inverse.DeviceAdam, lr 2e-2) through its step
+   (warm-up on a side stream, capture, replays of one
+   sharding.TrainStepGraph) and through its eager route in the turns
+   SHARD_TURNS (losses and final parameters bitwise, launches equal, the
+   loss trending down; a TrainStepGraph captured alone for its seconds),
+   and at world size 2 ((2, 1), (1, 2); gloo, eager) 5 steps with the
+   default optimizer on fixed samples (the loss must fall); each step's
+   route, s/step, every rank's launches (the interp backward included);
 17. the new render options on the card: (a) the Cornell headline at 512x512
    with the sobol_global sampler (m = 9) through render(), s/pass, and
    its sample values for dims 0-12 (and the 2D filter and lens draws) of
@@ -229,8 +242,9 @@ non-zero:
    brute-force mode, each launch of 4b, each launch of 10b and 12b, the
    interpolation kernel and each case of its backward (9b); the rows of
    both brute-force modes, both octree modes and the interpolation
-   kernel also carry their launches in phases 18-22 and 24, the backward's
-   config 5 row its launches in 24 (launches_by_phase)
+   kernel also carry their launches in phases 16 (the world-size-1 runs
+   of 16a and 16c), 18-22 and 24, the backward's config 5 row its
+   launches in 16 and 24 (launches_by_phase)
    (CUDA-event medians: of 5 for
    the kernels, of 3 for the plain versions and the brute kernel at full
    mesh size, one run of the plain traversal in 10b and 12b; the brute
@@ -331,6 +345,8 @@ RENDER_OPTIONS = {
 FILM_RTOL, FILM_ATOL = 1e-5, 2e-6
 SHARD_GRAD_RTOL, SHARD_GRAD_ATOL_SHARE = 1e-3, 1e-6
 SHARD_STEPS = 5
+SHARD_GRAPH_STEPS = 20      # 16c (1, 1): steps a turn, captured or eager
+SHARD_TURNS = ("graph", "eager", "graph")   # 16a and 16c (1, 1)
 TWO_RANK_LAYOUTS = ((2, 1), (1, 2))
 RANKS_TIMEOUT_S = 300       # 16b's deadline (their time: PERF.md section 5)
 # 17: the sobol_global sample values checked bit for bit, and the new
@@ -1504,8 +1520,7 @@ def train_graph_phase(dev, card, steps=TRAIN_STEPS):
                 start, camera, cfg, ei, target_img, steps=steps, lr=lr,
                 callback=tick),
             "eager": lambda tick: inv._optimize(
-                start, camera, cfg, ei, target_img, steps, lr, tick,
-                inv.DeviceAdam)}
+                start, camera, cfg, ei, target_img, steps, lr, tick)}
     ref, turns, counts = None, {"graph": [], "eager": []}, {}
     for side in TRAIN_GRAPH_TURNS:
         times = []
@@ -1704,22 +1719,92 @@ def close_films(got, ref):
             and torch.equal(got.weight_sum.cpu(), ref.weight_sum.cpu()))
 
 
-def sharded_headline(scene, camera, cfg, mesh, dev):
-    """One warm-up step, then render_distributed with every count at 0
-    just before and read just after: (film, s/pass, launches)."""
-    step, _ = par.make_sharded_render(scene, camera, cfg, mesh)
-    step(scene, filmmod.Film.create(cfg.resolution, device=dev), 0)
+def counted_run(fn, dev):
+    """(fn(), its seconds, the launches it made), every count at 0 just
+    before it and read just after."""
     sync(dev)
     zero_counts()
     t0 = time.perf_counter()
-    film, _ = par.render_distributed(scene, camera, cfg, mesh)
+    out = fn()
     sync(dev)
-    dt = time.perf_counter() - t0
-    launches = read_counts()
+    return out, time.perf_counter() - t0, read_counts()
+
+
+def sharded_headline(scene, camera, cfg, mesh, dev):
+    """16b: one warm-up step, then render_distributed (eager on gloo) with
+    every count at 0 just before and read just after: (film, s/pass,
+    launches)."""
+    step, _ = par.make_sharded_render(scene, camera, cfg, mesh)
+    step(scene, filmmod.Film.create(cfg.resolution, device=dev), 0)
+    (film, _), dt, launches = counted_run(
+        lambda: par.render_distributed(scene, camera, cfg, mesh), dev)
     path = ("brute_closest", "brute_anyhit", "interp")
     assert torch.device(dev).type != "cuda" or min(
         launches[k] for k in path) > 0, launches
     return film, dt / cfg.sampler.spp, launches
+
+
+def eager_sharded_render(scene, camera, cfg, mesh):
+    """render_distributed's steps as eager calls of make_sharded_render's
+    step: the bits its captured route must give."""
+    step, _ = par.make_sharded_render(scene, camera, cfg, mesh)
+    film = filmmod.Film.create(cfg.resolution, device=scene.device)
+    for base in range(0, cfg.sampler.spp, mesh.size(1)):
+        film = step(scene, film, base)
+    return film
+
+
+def sharded_render_turns(scene, camera, cfg, mesh, dev):
+    """16a's routes on ``mesh``: one RenderStepGraph captured alone after
+    an eager step (its capture seconds, its launches a replay, spp - 1
+    replays timed), then render_distributed (captured where
+    par.captures(mesh)) and its eager steps in the turns SHARD_TURNS,
+    every count at 0 before each run and read after: every film bitwise
+    equal, the launches of both routes equal and, captured, each step a
+    replay's. Returns (film, row)."""
+    spp = cfg.sampler.spp
+    captured = par.captures(mesh)
+    capture_s = replay_s = per_replay = None
+    if captured:
+        sums, _ = par._sharded_sums(camera, cfg, mesh)
+        sums(scene, 0)
+        sync(dev)
+        t0 = time.perf_counter()
+        graph = par.RenderStepGraph(lambda idx: sums(scene, idx), 1, 1,
+                                    cfg.resolution, dev)
+        sync(dev)
+        capture_s = time.perf_counter() - t0
+        _, replay_s, _ = counted_run(lambda: graph.run(spp - 1), dev)
+        per_replay = graph.launches
+        del graph
+    runs = {"graph": lambda: par.render_distributed(scene, camera, cfg,
+                                                    mesh)[0],
+            "eager": lambda: eager_sharded_render(scene, camera, cfg, mesh)}
+    film, turns, counts = None, {"graph": [], "eager": []}, {}
+    for side in SHARD_TURNS:
+        got, dt, launches = counted_run(runs[side], dev)
+        turns[side].append(dt / spp)
+        counts.setdefault(side, launches)
+        assert launches == counts[side], f"16a: {side} launches differ"
+        film = got if film is None else film
+        assert (torch.equal(got.rgb_sum, film.rgb_sum)
+                and torch.equal(got.weight_sum, film.weight_sum)
+                and got.spp_done == film.spp_done), \
+            f"16a: the {side} film differs"
+    assert counts["graph"] == counts["eager"], counts
+    assert not captured or all(n == per_replay[k] * spp for k, n in
+                               counts["graph"].items()), per_replay
+    assert torch.device(dev).type != "cuda" or min(
+        counts["graph"][k] for k in ("brute_closest", "brute_anyhit",
+                                     "interp")) > 0, counts["graph"]
+    return film, {
+        "route": "captured" if captured else "eager",
+        "turns": list(SHARD_TURNS), "films_bitwise": True,
+        "s_per_pass": turns,
+        "replayed_s_per_pass": replay_s and replay_s / (spp - 1),
+        "capture_s": capture_s,
+        "launches_per_pass": {k: n / spp for k, n in counts["graph"].items()},
+        "launches": counts["graph"]}
 
 
 def config5_target(dev, scale):
@@ -1730,27 +1815,35 @@ def config5_target(dev, scale):
         return render_image(target)
 
 
-def config5_sharded(dev, scale, mesh, target_img, steps=SHARD_STEPS):
-    """Config 5's sharded train step on ``mesh`` with every leaf of
-    albedo_and_emission_params: the averaged gradient at sample 0 (SGD at
-    lr 0 leaves it in .grad), then ``steps`` + 1 Adam steps at config 5's
-    lr on the same samples (the last step's loss is the loss after
-    ``steps`` updates), with every count at 0 just before and read just
-    after; s/step is the median of the steps after the first."""
-    _, start, camera, cfg, lr, _ = entry.config5_setup(scale, dev)
+def sharded_grads(dev, scale, mesh, target_img):
+    """Config 5's gradient averaged over the ranks at sample 0, every leaf
+    of albedo_and_emission_params (SGD at lr 0 leaves it in .grad; its
+    step runs eagerly)."""
+    _, start, camera, cfg, _, _ = entry.config5_setup(scale, dev)
     ei = inv.albedo_and_emission_params(start)
     step, init, _ = par.make_train_step(
         start, camera, cfg, mesh, ei,
         optimizer=lambda leaves: torch.optim.SGD(leaves, lr=0.0))
     params = inv.leaf_params(ei[0](start))
     step(params, init(params), start, target_img, 0)
-    grads = {k: p.grad.cpu() for k, p in params.items()}
-    step, init, _ = par.make_train_step(
-        start, camera, cfg, mesh, ei,
-        optimizer=lambda leaves: torch.optim.Adam(leaves, lr=lr))
+    assert step.route == "eager", step.route
+    return {k: p.grad.cpu() for k, p in params.items()}
+
+
+def config5_sharded(dev, scale, mesh, target_img, steps=SHARD_STEPS):
+    """16c on gloo: the averaged gradient (sharded_grads), then ``steps``
+    + 1 steps with make_train_step's default optimizer (DeviceAdam, lr
+    2e-2) on the same samples (the last step's loss is the loss after
+    ``steps`` updates), every one eager, with every count at 0 just before
+    and read just after; s/step is the median of the steps after the
+    first."""
+    grads = sharded_grads(dev, scale, mesh, target_img)
+    _, start, camera, cfg, _, _ = entry.config5_setup(scale, dev)
+    ei = inv.albedo_and_emission_params(start)
+    step, init, _ = par.make_train_step(start, camera, cfg, mesh, ei)
     params = inv.leaf_params(ei[0](start))
     opt = init(params)
-    losses, times = [], []
+    losses, times, routes = [], [], []
     sync(dev)
     zero_counts()
     for _ in range(steps + 1):
@@ -1758,15 +1851,99 @@ def config5_sharded(dev, scale, mesh, target_img, steps=SHARD_STEPS):
         params, opt, loss = step(params, opt, start, target_img, 0)
         losses.append(float(loss))
         times.append(time.perf_counter() - t0)
+        routes.append(step.route)
     launches = read_counts()
     assert losses[-1] < losses[0], f"sharded loss {losses[0]} -> {losses[-1]}"
     cuda = torch.device(dev).type == "cuda"
     assert not cuda or min(launches[k] for k in (
         "brute_closest", "brute_anyhit", "interp", "interp_backward")) > 0, \
         launches
-    return {"grads": grads, "losses": losses,
+    return {"grads": grads, "losses": losses, "routes": routes,
+            "optimizer": type(opt).__name__,
             "s_per_step_median": statistics.median(times[1:]),
             "launches": launches}
+
+
+def sharded_step_turns(dev, scale, mesh, target_img, steps=SHARD_GRAPH_STEPS):
+    """16c at world size 1: the averaged gradient (sharded_grads), one
+    TrainStepGraph captured alone after an eager step on a side stream
+    (its capture seconds), then ``steps`` steps at samples 0 ..
+    ``steps`` - 1 with the default optimizer (DeviceAdam, lr 2e-2) through
+    train_step (captured where par.captures(mesh): warm-up, capture,
+    replays) and through train_step.eager, in the turns SHARD_TURNS, every
+    count at 0 before each run and read after: the losses and the final
+    parameters of every run bitwise equal, the launches of both routes
+    equal (captured: each step a replay's), the loss trending down (the
+    mean of the last 3 below that of the first 3, the reference test's
+    gate on varying samples); s/step (steady: eager from step 1, replays
+    from step 2)."""
+    grads = sharded_grads(dev, scale, mesh, target_img)
+    _, start, camera, cfg, _, _ = entry.config5_setup(scale, dev)
+    ei = inv.albedo_and_emission_params(start)
+    captured = par.captures(mesh)
+    capture_s = per_replay = None
+    if captured:
+        step, init, _ = par.make_train_step(start, camera, cfg, mesh, ei)
+        params = inv.leaf_params(ei[0](start))
+        opt = init(params)
+        inv.on_side_stream(lambda: step.eager(params, opt, start, target_img,
+                                              0))
+        sync(dev)
+        t0 = time.perf_counter()
+        graph = par.TrainStepGraph(step.eager, params, opt, start,
+                                   target_img, 0)
+        sync(dev)
+        capture_s = time.perf_counter() - t0
+        per_replay = graph.launches
+        del graph, step, opt, params
+
+    def run(side):
+        step, init, _ = par.make_train_step(start, camera, cfg, mesh, ei)
+        call = step if side == "graph" else (
+            lambda *a: a[:2] + (step.eager(*a),))
+        params = inv.leaf_params(ei[0](start))
+        opt = init(params)
+        losses, routes, times = [], [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            params, opt, loss = call(params, opt, start, target_img, i)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+            routes.append(step.route if side == "graph" else "eager")
+        return params, losses, routes, times
+
+    ref, turns, counts, routes = None, {"graph": [], "eager": []}, {}, {}
+    for side in SHARD_TURNS:
+        (params, losses, routes[side], times), _, launches = counted_run(
+            lambda: run(side), dev)
+        counts.setdefault(side, launches)
+        assert launches == counts[side], f"16c: {side} launches differ"
+        turns[side].append(times)
+        ref = ref or (params, losses)
+        assert losses == ref[1], f"16c: the {side} losses differ"
+        assert all(torch.equal(params[k], ref[0][k]) for k in params), \
+            f"16c: the {side} parameters differ"
+    losses = ref[1]
+    assert counts["graph"] == counts["eager"], counts
+    assert torch.device(dev).type != "cuda" or min(
+        counts["graph"][k] for k in ("brute_closest", "brute_anyhit",
+                                     "interp", "interp_backward")) > 0, \
+        counts["graph"]
+    assert np.mean(losses[-3:]) < np.mean(losses[:3]), losses
+    assert not captured or all(n == per_replay[k] * steps
+                               for k, n in counts["graph"].items()), \
+        per_replay
+    skip = {"graph": 2 if captured else 1, "eager": 1}
+    median = {side: statistics.median(s for run in runs_s
+                                      for s in run[skip[side]:])
+              for side, runs_s in turns.items()}
+    return {"grads": grads, "losses": losses, "routes": routes["graph"],
+            "optimizer": "DeviceAdam", "turns": list(SHARD_TURNS),
+            "losses_bitwise": True, "params_bitwise": True,
+            "capture_s": capture_s, "s_per_step": turns,
+            "s_per_step_median": median["graph"],
+            "eager_s_per_step_median": median["eager"],
+            "launches": counts["graph"]}
 
 
 def unsharded_grads(dev, scale, target_img, n_sp):
@@ -1829,6 +2006,7 @@ def sharded_rank(rank, world, tmp, dev_type, res, spp, scale):
         film, s_pass, launches = sharded_headline(scene, camera, cfg, mesh,
                                                   dev)
         out[layout] = {"s_per_pass": s_pass, "launches": launches,
+                       "route": "captured" if par.captures(mesh) else "eager",
                        "film": filmmod.Film(film.rgb_sum.cpu(),
                                             film.weight_sum.cpu(),
                                             film.spp_done),
@@ -1839,26 +2017,29 @@ def sharded_rank(rank, world, tmp, dev_type, res, spp, scale):
 
 def sharded_phase(dev, card, ref_film, ref_s_pass, train_s_step,
                   res=HEADLINE_RES, spp=HEADLINE_SPP, scale="full"):
-    """Phase 16 (see the module docstring); ``ref_film`` is phase 4's."""
+    """Phase 16 (see the module docstring); ``ref_film`` is phase 4's.
+    Returns the launches of its world-size-1 runs through the entry points
+    (16a's render_distributed and 16c's train steps, first turn)."""
     dev_type = torch.device(dev).type
     scene, camera, cfg = entry.cornell_setup(res, spp, dev)
     mesh = par.make_mesh(1, 1, device_type=dev_type)
     backend = torch.distributed.get_backend()
-    film, s_pass, launches = sharded_headline(scene, camera, cfg, mesh, dev)
+    film, row = sharded_render_turns(scene, camera, cfg, mesh, dev)
     diff, bitwise = close_films(film, ref_film)
     print("phase16a", json.dumps({
         "world": 1, "backend": backend, "res": res, "spp": spp,
-        "depth": cfg.max_depth, "s_per_pass": s_pass,
+        "depth": cfg.max_depth, **row,
         "render_s_per_pass_phase4": ref_s_pass,
         "max_abs_diff_vs_render": diff, "bitwise": bitwise,
-        "rtol": FILM_RTOL, "atol": FILM_ATOL, "launches": launches,
-        "card": card}), flush=True)
+        "rtol": FILM_RTOL, "atol": FILM_ATOL, "card": card}), flush=True)
     del scene, film
 
     target_img = config5_target(dev, scale)
     refs = {n_sp: unsharded_grads(dev, scale, target_img, n_sp)
             for n_sp in (1, 2)}
-    rows = [((1, 1), [config5_sharded(dev, scale, mesh, target_img)])]
+    rows = [((1, 1), [sharded_step_turns(dev, scale, mesh, target_img)])]
+    launches = {k: n + rows[0][1][0]["launches"][k]
+                for k, n in row["launches"].items()}
     torch.distributed.destroy_process_group()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1871,8 +2052,8 @@ def sharded_phase(dev, card, ref_film, ref_s_pass, train_s_step,
         diffs = [close_films(r[layout]["film"], ref_film) for r in ranks]
         print("phase16b", json.dumps({
             "world": 2, "backend": "gloo", "layout": layout, "res": res,
-            "spp": spp, "s_per_pass": [r[layout]["s_per_pass"]
-                                       for r in ranks],
+            "spp": spp, "route": [r[layout]["route"] for r in ranks],
+            "s_per_pass": [r[layout]["s_per_pass"] for r in ranks],
             "max_abs_diff_vs_render": max(d[0] for d in diffs),
             "bitwise": all(d[1] for d in diffs),
             "launches": [r[layout]["launches"] for r in ranks],
@@ -1883,14 +2064,19 @@ def sharded_phase(dev, card, ref_film, ref_s_pass, train_s_step,
         share = [sharded_grads_close(t["grads"], refs[n_sp]) for t in trains]
         print("phase16c", json.dumps({
             "world": layout[0] * layout[1], "layout": layout,
+            "backend": "gloo" if layout in TWO_RANK_LAYOUTS else backend,
             "grad_diff_share_of_max": share,
             "rtol": SHARD_GRAD_RTOL, "atol_share": SHARD_GRAD_ATOL_SHARE,
-            "losses": [t["losses"] for t in trains],
-            "s_per_step_median": [t["s_per_step_median"] for t in trains],
+            **{k: [t[k] for t in trains] for k in (
+                "optimizer", "routes", "losses", "s_per_step_median",
+                "launches")},
+            **{k: v for k, v in trains[0].items() if k in (
+                "turns", "losses_bitwise", "params_bitwise", "capture_s",
+                "s_per_step", "eager_s_per_step_median")},
             "passes_per_step_per_rank": 1,
             "phase14b_s_per_step_8_passes": train_s_step,
-            "launches": [t["launches"] for t in trains],
             "card": card}), flush=True)
+    return launches
 
 
 def edge_pixels(scene, camera, cfg, sample_idx):
@@ -2836,11 +3022,13 @@ def main():
     options_phase(dev)
 
     # phase 16: the sharded paths; phase 17: the new options
-    sharded_phase(dev, card, headline_film, headline_s_pass, train_s_step)
+    sharded_launches = sharded_phase(dev, card, headline_film,
+                                     headline_s_pass, train_s_step)
     options_card_phase(dev, card)
 
     # phases 18-21: the apps and scenes as data, each with its launches
-    app_launches = {"18": raytracer_phase(dev, card),
+    app_launches = {"16": sharded_launches,
+                    "18": raytracer_phase(dev, card),
                     "19": shape_phase(dev, card),
                     "20": scene_file_phase(dev, card),
                     "21": apps_phase(dev, card)}

@@ -653,14 +653,17 @@ class PassGraph:
                               device=device)
         self.rgb_sum = torch.zeros((h, w, 3), device=device)
         self.weight_sum = torch.zeros((h, w), device=device)
-
-        def one_pass():
-            rgb, wt = pass_fn(self.idx)
-            self.rgb_sum.add_(rgb * wt[..., None])
-            self.weight_sum.add_(wt)
-            self.idx.add_(1)
         self.graph = torch.cuda.CUDAGraph()
-        _, self.launches = capture_counted(self.graph, one_pass)
+        _, self.launches = capture_counted(self.graph,
+                                           lambda: self.one_pass(pass_fn))
+
+    def one_pass(self, pass_fn):
+        """What a replay runs: the pass at ``idx`` added into the sums,
+        then ``idx`` stepped."""
+        rgb, wt = pass_fn(self.idx)
+        self.rgb_sum.add_(rgb * wt[..., None])
+        self.weight_sum.add_(wt)
+        self.idx.add_(1)
 
     def run(self, n_passes, rgb_sum=None, weight_sum=None):
         """Replay ``n_passes`` passes onto (rgb_sum, weight_sum) (None:

@@ -12,14 +12,13 @@ Parameters are plain dicts of leaf tensors; ``extract``/``insert`` move
 them out of and into a Scene with ``dataclasses.replace`` (the Scene caches
 nothing derived from albedo, emission or light scale).
 
-:func:`optimize` is the reference's Adam loop. On a CUDA scene its step 0
-runs eagerly and every later step is a replay of one captured CUDA graph
+:func:`optimize` is the reference's Adam loop, with :class:`DeviceAdam`
+(``optax.adam``'s update in float32 tensor ops, its step count on the
+parameters' device) on every device. On a CUDA scene its step 0 runs
+eagerly and every later step is a replay of one captured CUDA graph
 (:class:`StepGraph`, the port of the reference's jitted ``step``: zero the
-gradients, the loss forward, its backward and the Adam update), with
-:class:`DeviceAdam`, ``optax.adam``'s update in float32 tensor ops whose step
-count stays on the device. On the CPU it is ``torch.optim.Adam``, whose
-defaults (β 0.9/0.999, ε 1e-8 added after the square root) are
-``optax.adam``'s, and every step runs eagerly.
+gradients, the loss forward, its backward and the Adam update); on the CPU
+every step runs eagerly.
 """
 
 from __future__ import annotations
@@ -177,18 +176,15 @@ def on_side_stream(fn):
 
 def optimize(scene, camera, cfg, extract_insert, target, steps=50, lr=2e-2,
              callback=None):
-    """Adam descent on the scene's parameters against a target image.
-    Returns (scene with the final parameters, the parameters, the loss
-    before each step). ``callback(i, params, loss)`` after each step gets
-    copies of the parameters. On a CUDA scene step 0 runs eagerly and
-    every later step replays one :class:`StepGraph` with
-    :class:`DeviceAdam` (the same bits as the eager loop with it); on the
-    CPU every step runs eagerly with ``torch.optim.Adam``."""
-    if scene.device.type == "cuda":
-        return _optimize(scene, camera, cfg, extract_insert, target, steps,
-                         lr, callback, DeviceAdam, capture=True)
+    """Adam descent on the scene's parameters against a target image, with
+    :class:`DeviceAdam` (the reference's ``optax.adam(lr)``). Returns
+    (scene with the final parameters, the parameters, the loss before each
+    step). ``callback(i, params, loss)`` after each step gets copies of
+    the parameters. On a CUDA scene step 0 runs eagerly and every later
+    step replays one :class:`StepGraph` (the same bits as the eager loop);
+    on the CPU every step runs eagerly."""
     return _optimize(scene, camera, cfg, extract_insert, target, steps, lr,
-                     callback, torch.optim.Adam)
+                     callback, capture=scene.device.type == "cuda")
 
 
 def make_step(camera, cfg, extract_insert, target, params, scene, opt):
@@ -206,14 +202,13 @@ def make_step(camera, cfg, extract_insert, target, params, scene, opt):
 
 
 def _optimize(scene, camera, cfg, extract_insert, target, steps, lr,
-              callback, adam, capture=False):
-    """:func:`optimize` with the optimizer class ``adam`` (``DeviceAdam``
-    or ``torch.optim.Adam``); with ``capture`` (a CUDA scene) step 0 runs
-    on a side stream and every later step replays one StepGraph, else
-    every step runs eagerly."""
+              callback, capture=False):
+    """:func:`optimize`; with ``capture`` (a CUDA scene) step 0 runs on a
+    side stream and every later step replays one StepGraph, else every
+    step runs eagerly (the card's bitwise reference)."""
     extract, insert = extract_insert
     params = leaf_params(extract(scene))
-    opt = adam(list(params.values()), lr=lr)
+    opt = DeviceAdam(list(params.values()), lr=lr)
     step = make_step(camera, cfg, extract_insert, target, params, scene, opt)
     history, graph = [], None
     for i in range(steps):

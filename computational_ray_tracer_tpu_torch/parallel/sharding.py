@@ -27,12 +27,20 @@ Backends: ``device_type="cuda"`` uses NCCL and raises without a card;
 group (an in-process store) when none is running. The dp gather is an
 all_reduce of the zero-padded film: gloo takes CUDA tensors only in
 all_reduce and broadcast, and so two ranks can share one card over gloo.
+
+On NCCL the steps are the reference's one device program each: after one
+eager step, ``render_distributed`` replays a captured render step
+(:class:`RenderStepGraph`) and ``make_train_step``'s step a captured train
+step (:class:`TrainStepGraph`), each on a sample index held on the device,
+with the eager steps' bits. Gloo's collectives cannot be captured, so on
+gloo every step runs eagerly (``captures``). On one card only world size 1
+runs over NCCL (NCCL takes one rank a device): a capture across ranks is
+unverified.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 import hashlib
 
 import numpy as np
@@ -42,6 +50,7 @@ import torch.distributed.nn.functional as dist_fn
 from torch.distributed.device_mesh import DeviceMesh
 
 from computational_ray_tracer_tpu_torch.models import integrator as integ
+from computational_ray_tracer_tpu_torch.models import inverse as inv
 from computational_ray_tracer_tpu_torch.ops import film as filmmod
 
 
@@ -116,46 +125,188 @@ def _pixel_block(n_pix, mesh):
     return dp_rank * block, (dp_rank + 1) * block
 
 
-def make_sharded_render(scene_template, camera, cfg, mesh):
-    """A sharded progressive render step: ``step(scene, film,
-    base_sample_idx) -> film`` adds n_sp sample passes (samples base ..
-    base + n_sp - 1) with the pixels split over dp; every rank gets the
-    whole film. Returns (step, sensor)."""
+def captures(mesh):
+    """Whether the sharded steps on ``mesh`` replay captured CUDA graphs:
+    on NCCL, whose collectives a capture records; gloo's cannot be
+    captured, so on gloo every step runs eagerly. Decided from the mesh's
+    backend before a step runs, never by trying a capture."""
+    return dist.get_backend(_axis(mesh, "dp")[2]) == "nccl"
+
+
+def _sharded_sums(camera, cfg, mesh):
+    """(sums, sensor): ``sums(scene, base_sample_idx)`` renders sample
+    base + sp on this rank's pixels and returns what a render step adds to
+    the film, every rank the whole of it: (rgb * w (H, W, 3), w (H, W))
+    summed over sp and gathered over dp. The index is a Python int or a
+    0-d int64 tensor on the scene's device (then nothing is read back to
+    the host)."""
     filter_obj = integ.make_filter(cfg)
     sensor = integ.make_sensor(cfg)
     w, h = cfg.resolution
     lo, hi = _pixel_block(w * h, mesh)
-    n_sp, sp_rank, sp_group = _axis(mesh, "sp")
+    sp_rank, sp_group = _axis(mesh, "sp")[1:]
     dp_group = _axis(mesh, "dp")[2]
 
-    @torch.no_grad()
-    def step(scene, film, base_sample_idx):
+    def sums(scene, base_sample_idx):
         pixel = torch.arange(lo, hi, device=scene.device)
+        idx = integ.sample_index(base_sample_idx, scene.device) + sp_rank
         rgb, fw = integ._pass_for_pixels(scene, camera, cfg, filter_obj,
-                                         sensor, pixel,
-                                         int(base_sample_idx) + sp_rank)
+                                         sensor, pixel, idx)
         part = torch.cat([rgb * fw[:, None], fw[:, None]], dim=1)
         dist.all_reduce(part, group=sp_group)
         full = part.new_zeros((w * h, 4))
         full[lo:hi] = part
         dist.all_reduce(full, group=dp_group)     # the gather over dp
-        return film.merge(filmmod.Film(full[:, :3].reshape(h, w, 3),
-                                       full[:, 3].reshape(h, w), n_sp))
+        return full[:, :3].reshape(h, w, 3), full[:, 3].reshape(h, w)
+
+    return sums, sensor
+
+
+def make_sharded_render(scene_template, camera, cfg, mesh):
+    """A sharded progressive render step: ``step(scene, film,
+    base_sample_idx) -> film`` adds n_sp sample passes (samples base ..
+    base + n_sp - 1) with the pixels split over dp; every rank gets the
+    whole film. ``base_sample_idx`` is a Python int or a 0-d int64 tensor
+    on the scene's device (sp is added on the device; nothing is read
+    back to the host). Every call runs eagerly. Returns (step, sensor)."""
+    sums, sensor = _sharded_sums(camera, cfg, mesh)
+    n_sp = _axis(mesh, "sp")[0]
+
+    @torch.no_grad()
+    def step(scene, film, base_sample_idx):
+        rgb, wt = sums(scene, base_sample_idx)
+        return film.merge(filmmod.Film(rgb, wt, n_sp))
 
     return step, sensor
 
 
+class RenderStepGraph(integ.PassGraph):
+    """One sharded render step captured as a CUDA graph, the port of the
+    reference's jitted ``step``: each replay runs ``sums(idx)`` (the rank's
+    pass, the sp all_reduce and the zero-padded dp all_reduce; see
+    ``_sharded_sums``) on the device index ``idx`` (0-d int64, first
+    ``sample_idx``), adds the result into the static film sums as
+    ``Film.merge`` adds it, and steps ``idx`` by ``n_sp``. ``sums`` must
+    have run once eagerly before (kernel builds, the per-device constants
+    and the NCCL communicators, which start at their first collective). A
+    capture that fails raises."""
+
+    def __init__(self, sums, n_sp, sample_idx, resolution, device):
+        self.n_sp = n_sp
+        super().__init__(sums, sample_idx, resolution, device)
+
+    def one_pass(self, pass_fn):
+        rgb, wt = pass_fn(self.idx)
+        self.rgb_sum.add_(rgb)
+        self.weight_sum.add_(wt)
+        self.idx.add_(self.n_sp)
+
+
+@torch.no_grad()
 def render_distributed(scene, camera, cfg, mesh=None):
     """The sharded render: cfg.sampler.spp passes in steps of n_sp (the
     last step runs past spp when n_sp does not divide it, as the
-    reference's does). The mesh defaults to every rank on dp."""
+    reference's does). The mesh defaults to every rank on dp. On a mesh
+    whose backend is NCCL (``captures``) the first step runs eagerly and
+    every later step replays one :class:`RenderStepGraph` (the bits of the
+    eager steps of :func:`make_sharded_render`); on gloo every step runs
+    eagerly."""
     if mesh is None:
         mesh = make_mesh(device_type=scene.device.type)
-    step, sensor = make_sharded_render(scene, camera, cfg, mesh)
+    sums, sensor = _sharded_sums(camera, cfg, mesh)
+    n_sp = _axis(mesh, "sp")[0]
+    bases = range(0, cfg.sampler.spp, n_sp)
     film = filmmod.Film.create(cfg.resolution, device=scene.device)
-    for base in range(0, cfg.sampler.spp, _axis(mesh, "sp")[0]):
-        film = step(scene, film, base)
+    if captures(mesh) and len(bases) > 1:
+        film = film.merge(filmmod.Film(*sums(scene, 0), n_sp))
+        graph = RenderStepGraph(lambda idx: sums(scene, idx), n_sp, n_sp,
+                                cfg.resolution, scene.device)
+        rgb, wt = graph.run(len(bases) - 1, film.rgb_sum, film.weight_sum)
+        return filmmod.Film(rgb, wt, n_sp * len(bases)), sensor
+    for base in bases:
+        film = film.merge(filmmod.Film(*sums(scene, base), n_sp))
     return film, sensor
+
+
+def step_route(captured_backend, key, last):
+    """The route of a call of :func:`make_train_step`'s step, decided
+    before it runs from what it can observe. ``key`` is the call's
+    (parameter names, leaves, optimizer, scene), ``last`` the previous
+    call's (key, route) or None; keys are the same when the names are
+    equal and the rest are the very same objects (a graph's captured
+    addresses are those of its tensors).
+
+    - "eager" unless the backend records collectives in a capture
+      (``captured_backend``: NCCL) and the optimizer keeps its state on
+      the device (inverse.DeviceAdam, or a torch.optim optimizer built
+      with capturable=True);
+    - "replay" when the last call had the same key and captured or
+      replayed;
+    - "capture" when the last call with it was the "warm-up";
+    - "warm-up" (eager, on a side stream) otherwise: the first call, or
+      one with other leaves, another optimizer or another scene, whose
+      graph would replay over tensors it was not captured with. It drops
+      the graph, and the next call with the same key captures anew."""
+    names, leaves, opt, scene = key
+    capturable = isinstance(opt, inv.DeviceAdam) or (
+        isinstance(opt, torch.optim.Optimizer)
+        and all(g.get("capturable", False) for g in opt.param_groups))
+    if not (captured_backend and capturable):
+        return "eager"
+    if last is not None:
+        (l_names, l_leaves, l_opt, l_scene), route = last
+        if (names == l_names and len(leaves) == len(l_leaves)
+                and all(a is b for a, b in zip(leaves, l_leaves))
+                and opt is l_opt and scene is l_scene):
+            if route in ("capture", "replay"):
+                return "replay"
+            if route == "warm-up":
+                return "capture"
+    return "warm-up"
+
+
+def _set_index(idx, sample_idx):
+    """The static device index ``idx`` set to ``sample_idx`` (an int or a
+    tensor), with no read back to the host."""
+    if isinstance(sample_idx, torch.Tensor):
+        idx.copy_(sample_idx.reshape(()))
+    else:
+        idx.fill_(int(sample_idx))
+
+
+class TrainStepGraph:
+    """One sharded train step captured as a CUDA graph, the port of the
+    reference's jitted ``train_step``: ``step(params, opt, scene, target,
+    idx)`` (the gradients set to None, the rank's pass, the differentiable
+    sp sums, the loss, autograd.grad, the flat gradient all_reduce and its
+    mean, the optimizer step, the dp loss all_reduce) on a static target
+    buffer and a static 0-d device index. It must have run once eagerly
+    before with the same objects (the optimizer's state, the per-device
+    constants, the NCCL communicators). Each replay adds the capture's
+    launches to the counters. A capture that fails raises."""
+
+    def __init__(self, step, params, opt, scene, target, sample_idx):
+        self.idx = torch.zeros((), dtype=torch.int64, device=scene.device)
+        _set_index(self.idx, sample_idx)
+        self.target = target.detach().to(scene.device, copy=True)
+        opt.zero_grad()
+        self.graph = torch.cuda.CUDAGraph()
+        self.loss, self.launches = integ.capture_counted(
+            self.graph, lambda: step(params, opt, scene, self.target,
+                                     self.idx))
+        self.grads = [(p, p.grad) for p in params.values()]
+
+    def run(self, target, sample_idx):
+        """One replay at ``sample_idx`` against ``target``; returns the
+        loss before the update (a copy: the next replay overwrites the
+        static one) and leaves the gradients in the leaves' ``.grad``."""
+        self.target.copy_(target)
+        _set_index(self.idx, sample_idx)
+        self.graph.replay()
+        integ.add_launch_counts(self.launches)
+        for p, g in self.grads:
+            p.grad = g
+        return self.loss.clone()
 
 
 def make_train_step(scene_template, camera, cfg, mesh, param_labels,
@@ -163,7 +314,9 @@ def make_train_step(scene_template, camera, cfg, mesh, param_labels,
     """A sharded gradient step on scene parameters against a target image
     (H, W, 3) in filter-weighted sensor RGB. ``param_labels`` is
     (extract, insert) as in ``models/inverse.py``; ``optimizer`` maps a
-    list of leaf tensors to a torch optimizer (default Adam, lr 2e-2).
+    list of leaf tensors to an optimizer with ``zero_grad`` and ``step``
+    (default inverse.DeviceAdam at lr 2e-2, the reference's
+    ``optax.adam(2e-2)``).
 
     Returns (train_step, init, sensor): ``init(params)`` builds the
     optimizer over the dict's leaves (tensors that require grad);
@@ -171,9 +324,22 @@ def make_train_step(scene_template, camera, cfg, mesh, param_labels,
     sample sample_idx + sp on each rank's pixels, averages the gradients
     over every rank, leaves them in each leaf's ``.grad``, steps the
     optimizer and returns (params, opt_state, loss), the loss before the
-    step."""
+    step. ``sample_idx`` is a Python int or a 0-d int64 tensor; nothing is
+    read back to the host.
+
+    Its route (:func:`step_route`; ``train_step.route`` after each
+    call): on NCCL with a capturable optimizer the first call runs
+    eagerly on a side stream, the second captures one
+    :class:`TrainStepGraph` and every later call with the same leaves,
+    optimizer and scene copies ``target`` and ``sample_idx`` into its
+    static inputs and replays it (the eager route's bits); other leaves,
+    another optimizer or another scene start that sequence again. On gloo,
+    or with another optimizer (``torch.optim.SGD`` to read the gradient),
+    every call runs eagerly. ``train_step`` is a :class:`TrainStep`; its
+    ``eager(params, opt_state, scene, target, sample_idx) -> loss`` is the
+    eager route itself."""
     _, insert = param_labels
-    make_opt = optimizer or functools.partial(torch.optim.Adam, lr=2e-2)
+    make_opt = optimizer or (lambda leaves: inv.DeviceAdam(leaves, lr=2e-2))
     filter_obj = integ.make_filter(cfg)
     sensor = integ.make_sensor(cfg)
     w, h = cfg.resolution
@@ -183,16 +349,17 @@ def make_train_step(scene_template, camera, cfg, mesh, param_labels,
 
     def local_loss(params, scene, target, sample_idx):
         pixel = torch.arange(lo, hi, device=scene.device)
+        idx = integ.sample_index(sample_idx, scene.device) + sp_rank
         rgb, fw = integ._pass_for_pixels(insert(scene, params), camera, cfg,
-                                         filter_obj, sensor, pixel,
-                                         int(sample_idx) + sp_rank)
+                                         filter_obj, sensor, pixel, idx)
         rgb_sum = dist_fn.all_reduce(rgb * fw[:, None], group=sp_group)
         wt_sum = dist_fn.all_reduce(fw, group=sp_group)
         img = rgb_sum / torch.clamp(wt_sum[:, None], min=1e-12)
         return torch.mean((img - target.reshape(-1, 3)[lo:hi]) ** 2)
 
-    def train_step(params, opt_state, scene, target, sample_idx):
+    def eager(params, opt_state, scene, target, sample_idx):
         leaves = list(params.values())
+        opt_state.zero_grad()
         loss = local_loss(params, scene, target, sample_idx)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         flat = torch.cat([(torch.zeros_like(p) if g is None else g)
@@ -204,12 +371,44 @@ def make_train_step(scene_template, camera, cfg, mesh, param_labels,
         opt_state.step()
         loss = loss.detach().clone()
         dist.all_reduce(loss, group=dp_group)
-        return params, opt_state, loss / n_dp
+        return loss / n_dp
 
     def init(params):
         return make_opt(list(params.values()))
 
-    return train_step, init, sensor
+    return TrainStep(eager, captures(mesh)), init, sensor
+
+
+class TrainStep:
+    """:func:`make_train_step`'s step: ``self(params, opt_state, scene,
+    target, sample_idx) -> (params, opt_state, loss)`` on the route of
+    :func:`step_route`; ``route`` is the last call's, ``eager`` the eager
+    route itself."""
+
+    def __init__(self, eager, captured_backend):
+        self.eager = eager
+        self.captured_backend = captured_backend
+        self.last = self.graph = None
+
+    @property
+    def route(self):
+        return None if self.last is None else self.last[1]
+
+    def __call__(self, params, opt_state, scene, target, sample_idx):
+        key = (tuple(params), tuple(params.values()), opt_state, scene)
+        route = step_route(self.captured_backend, key, self.last)
+        args = (params, opt_state, scene, target, sample_idx)
+        if route == "eager":
+            loss = self.eager(*args)
+        elif route == "warm-up":
+            self.graph = None
+            loss = inv.on_side_stream(lambda: self.eager(*args))
+        else:
+            if route == "capture":
+                self.graph = TrainStepGraph(self.eager, *args)
+            loss = self.graph.run(target, sample_idx)
+        self.last = (key, route)
+        return params, opt_state, loss
 
 
 def scene_digest(scene):

@@ -2,7 +2,12 @@
 against its own single-process render and gradient and against the JAX
 package's sharded path on the 8-CPU mesh: the counterparts of the seven
 tests of ``tests/test_sharding.py`` at their tolerances, plus the film's
-scatter/merge and the ranks' scene bits.
+scatter/merge, the ranks' scene bits, the default optimizer (DeviceAdam)
+against the JAX ``make_train_step``'s optax.adam, and what the captured
+routes on NCCL need: no host read in either step on a device index (a
+one-rank gloo world in the test process) and the train step's route as a
+plain decision. The captures themselves run on the card only (the
+``cuda``-marked test, and ``chip_smoke.py`` phase 16).
 
 The ranks are gloo processes on the CPU, started with
 ``torch.multiprocessing`` (spawn, ``chip_smoke.spawn_ranks``: killed past
@@ -34,6 +39,7 @@ from computational_ray_tracer_tpu_torch.parallel import sharding as par
 LAYOUTS = [(8, 1), (4, 2), (2, 4), (1, 1)]
 INTEGRATORS = ["direct", "walk", "simple", "path"]
 GRAD_LAYOUTS = {1: (8, 1), 2: (4, 2), 4: (2, 4)}     # n_sp -> layout
+ADAM_LAYOUTS = [(1, 1), (4, 2)]
 
 
 def _camera(res):
@@ -106,6 +112,27 @@ def _train(scene, mesh):
             "p1": params["albedo_coeffs"].detach().clone()}
 
 
+def _adam(scene, mesh):
+    """3 steps of make_train_step with its default optimizer on the direct
+    8x8 albedo loss against 0.1, at samples 0, n_sp and 2 n_sp: each
+    step's loss, the parameters after it and its route."""
+    n_sp = mesh.size(1)
+    extract_insert = tinv.albedo_params(scene)
+    step, init, _ = par.make_train_step(scene, _camera(8), _cfg(8, 2), mesh,
+                                        extract_insert)
+    params = tinv.leaf_params(extract_insert[0](scene))
+    opt = init(params)
+    out = {"optimizer": type(opt).__name__, "losses": [], "params": [],
+           "routes": []}
+    for i in range(3):
+        params, opt, loss = step(params, opt, scene,
+                                 torch.full((8, 8, 3), 0.1), i * n_sp)
+        out["losses"].append(float(loss))
+        out["params"].append(params["albedo_coeffs"].detach().clone())
+        out["routes"].append(step.route)
+    return out
+
+
 def _rank_main(rank, world, tmp):
     """One rank: join the group, rebuild the scenes, run every layout of
     this world size, write the results to tmp/rank<rank>_<world>.pt."""
@@ -143,6 +170,8 @@ def _rank_main(rank, world, tmp):
                 res["uneven"] = str(err)
         if (n_dp, n_sp) == (4, 2):
             res["train"] = _train(scenes["sphere8"], mesh)
+        if (n_dp, n_sp) in ADAM_LAYOUTS:
+            res["adam"] = _adam(scenes["sphere8"], mesh)
     torch.save(out, os.path.join(tmp, f"rank{rank}_{world}.pt"))
 
 
@@ -324,6 +353,193 @@ def test_sharded_gradients_match_unsharded(world, n_sp):
         np.testing.assert_allclose(g, g_jax, rtol=1e-3, atol=1e-7)
         assert r["grad"]["loss"] == pytest.approx(loss, rel=1e-5)
         assert r["grad"]["loss"] == pytest.approx(float(jloss), rel=1e-3)
+
+
+@pytest.mark.parametrize("n_dp,n_sp", ADAM_LAYOUTS)
+def test_sharded_default_adam_matches_jax(world, n_dp, n_sp):
+    """make_train_step's default optimizer, DeviceAdam at lr 2e-2, against
+    the JAX make_train_step's, optax.adam(2e-2), over 3 steps of the
+    direct 8x8 albedo loss on the same layout (gloo: every step eager):
+    the losses within rtol 1e-3 (the reference tests'); the parameters
+    after the first update within 5e-8 of max|p|, under half an ulp of the
+    largest (DeviceAdam is exact at both layouts; torch.optim.Adam, the
+    default before, is 1.4e-7 off at (1, 1)), and after the later two
+    within 2e-6, where the gradients' own differences from the
+    reference's take over (DeviceAdam: up to 8.7e-7 of max|p|)."""
+    import jax
+    from computational_ray_tracer_tpu.models import inverse as jinv
+    from computational_ray_tracer_tpu.parallel import sharding as jpar
+    from computational_ray_tracer_tpu.models import integrator as jinteg
+    from jax.sharding import NamedSharding, PartitionSpec
+    jscene, jcamera = world[0]["sphere8"]
+    extract, insert = jinv.albedo_params(jscene)
+    mesh = jpar.make_mesh(n_dp=n_dp, n_sp=n_sp, devices=jax.devices("cpu"))
+    step, init, _ = jpar.make_train_step(
+        jscene, jcamera, _cfg(8, 2, mod=jinteg), mesh, (extract, insert))
+    # replicated over the mesh, as the step returns them: it compiles once
+    jp, state = jax.device_put((extract(jscene), init(extract(jscene))),
+                               NamedSharding(mesh, PartitionSpec()))
+    losses, params = [], []
+    for i in range(3):
+        jp, state, loss = step(jp, state, jscene,
+                               np.full((8, 8, 3), 0.1, np.float32), i * n_sp)
+        losses.append(float(loss))
+        params.append(np.asarray(jp["albedo_coeffs"]))
+    for r in _layout(world, n_dp, n_sp):
+        got = r["adam"]
+        assert got["optimizer"] == "DeviceAdam"
+        assert got["routes"] == ["eager"] * 3
+        np.testing.assert_allclose(got["losses"], losses, rtol=1e-3)
+        for i, (p, ref) in enumerate(zip(got["params"], params)):
+            scale = float(np.abs(ref).max())
+            np.testing.assert_allclose(p.numpy(), ref, rtol=0,
+                                       atol=(5e-8 if i == 0 else 2e-6)
+                                       * scale, err_msg=f"step {i}")
+
+
+@pytest.fixture
+def one_rank():
+    """A (1, 1) mesh over a world of one gloo rank in this process
+    (make_mesh starts it), destroyed after the test."""
+    try:
+        yield par.make_mesh(1, 1, device_type="cpu")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_sharded_steps_read_nothing_back(world, one_rank):
+    """At world size 1 on gloo, the sharded render step on a 0-d device
+    index (the film of the int index, bit for bit) and the sharded train
+    step with its default DeviceAdam on one make no host read and lift no
+    host data: the condition of their capture on NCCL."""
+    from test_torch_device_index import _HostReads
+    scene = world[1]["sphere8"]
+    render_step, _ = par.make_sharded_render(scene, _camera(8), _cfg(8, 2),
+                                             one_rank)
+    film = render_step(scene, tfilm.Film.create((8, 8)), 0)
+    idx, target = torch.tensor(1), torch.full((8, 8, 3), 0.1)
+    mode = _HostReads()
+    with mode:
+        got = render_step(scene, film, idx)
+    assert mode.seen == [], mode.seen
+    want = render_step(scene, film, 1)
+    assert torch.equal(got.rgb_sum, want.rgb_sum)
+    assert torch.equal(got.weight_sum, want.weight_sum)
+
+    extract_insert = tinv.albedo_params(scene)
+    step, init, _ = par.make_train_step(scene, _camera(8), _cfg(8, 2),
+                                        one_rank, extract_insert)
+    params = tinv.leaf_params(extract_insert[0](scene))
+    opt = init(params)
+    step(params, opt, scene, target, 0)
+    mode = _HostReads()
+    with mode:
+        _, _, loss = step(params, opt, scene, target, idx)
+    assert mode.seen == [], mode.seen
+    assert isinstance(opt, tinv.DeviceAdam) and step.route == "eager"
+    assert float(loss) > 0.0
+
+
+def test_train_step_route():
+    """make_train_step's route as a plain decision: eager on gloo or with
+    an optimizer whose state is on the host (torch.optim.SGD,
+    torch.optim.Adam without capturable); on NCCL with DeviceAdam or a
+    capturable torch optimizer, a warm-up, a capture, then replays while
+    the parameter names are equal and the leaves, the optimizer and the
+    scene the same objects; any other of them warms up again (the next
+    call captures anew)."""
+    p, q = (torch.zeros(3, requires_grad=True) for _ in range(2))
+    scene, adam = object(), tinv.DeviceAdam([p], lr=0.1)
+    key = (("a",), (p,), adam, scene)
+    for nccl, opt in ((False, adam), (True, torch.optim.Adam([p])),
+                      (True, torch.optim.SGD([p], lr=0.0))):
+        k = (("a",), (p,), opt, scene)
+        assert par.step_route(nccl, k, None) == "eager"
+        assert par.step_route(nccl, k, (k, "eager")) == "eager"
+    capturable = torch.optim.Adam([p], capturable=True)
+    for opt in (adam, capturable):
+        k = (("a",), (p,), opt, scene)
+        assert par.step_route(True, k, None) == "warm-up"
+        assert par.step_route(True, k, (k, "warm-up")) == "capture"
+        assert par.step_route(True, k, (k, "capture")) == "replay"
+        assert par.step_route(True, k, (k, "replay")) == "replay"
+    same = (("a",), (p,), adam, scene)         # equal, not the same tuple
+    assert par.step_route(True, same, (key, "replay")) == "replay"
+    for other in ((("b",), (p,), adam, scene), (("a",), (q,), adam, scene),
+                  (("a",), (p, q), adam, scene),
+                  (("a",), (p,), tinv.DeviceAdam([p], lr=0.1), scene),
+                  (("a",), (p,), adam, object())):
+        for last in ("warm-up", "capture", "replay"):
+            assert par.step_route(True, other, (key, last)) == "warm-up"
+
+
+@pytest.mark.cuda
+def test_captured_sharded_steps_on_cuda():
+    """Needs a CUDA card and nvcc: at world size 1 over NCCL,
+    render_distributed (one eager step, then replays of a RenderStepGraph)
+    against the eager steps of make_sharded_render on the 32x32 Cornell
+    box at spp 4, and make_train_step's step with its default DeviceAdam
+    (warm-up, capture, replays) against its eager route over 6 steps of
+    config 5 at 32x32: films, losses, parameters, gradients and launch
+    counts equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: NCCL and a CUDA graph capture run only "
+                    "on the card")
+    from test_torch_train_graph import config5
+    from computational_ray_tracer_tpu_torch import entry
+    mesh = par.make_mesh(1, 1, device_type="cuda")
+    try:
+        scene, camera, cfg = entry.cornell_setup(res=32, spp=4,
+                                                 device="cuda")
+        render_step, _ = par.make_sharded_render(scene, camera, cfg, mesh)
+
+        def eager_render():
+            film = tfilm.Film.create(cfg.resolution, device="cuda")
+            for base in range(cfg.sampler.spp):
+                film = render_step(scene, film, base)
+            return film
+        films, counts = [], []
+        for run in (eager_render,
+                    lambda: par.render_distributed(scene, camera, cfg,
+                                                   mesh)[0]):
+            before = tinteg.launch_counts()
+            films.append(run())
+            torch.cuda.synchronize()
+            counts.append({k: n - before[k]
+                           for k, n in tinteg.launch_counts().items()})
+        assert torch.equal(films[0].rgb_sum, films[1].rgb_sum)
+        assert torch.equal(films[0].weight_sum, films[1].weight_sum)
+        assert films[1].spp_done == 4 and counts[0] == counts[1]
+        assert min(counts[0]["brute_closest"], counts[0]["interp"]) > 0
+
+        start, camera, cfg, _, target = config5("cuda", res=32)
+        ei = tinv.albedo_and_emission_params(start)
+        runs = {}
+        for name in ("captured", "eager"):
+            step, init, _ = par.make_train_step(start, camera, cfg, mesh, ei)
+            call = step if name == "captured" else (
+                lambda *a: a[:2] + (step.eager(*a),))
+            params = tinv.leaf_params(ei[0](start))
+            opt = init(params)
+            before = tinteg.launch_counts()
+            losses, routes = [], []
+            for i in range(6):
+                params, opt, loss = call(params, opt, start, target, i)
+                losses.append(float(loss))
+                routes.append(step.route)
+            torch.cuda.synchronize()
+            runs[name] = (params, losses, routes, {
+                k: n - before[k] for k, n in tinteg.launch_counts().items()})
+        (p_c, l_c, r_c, n_c), (p_e, l_e, _, n_e) = (runs["captured"],
+                                                    runs["eager"])
+        assert r_c == ["warm-up", "capture"] + ["replay"] * 4
+        assert l_c == l_e and l_c[-1] < l_c[0]
+        for k in p_e:
+            assert torch.equal(p_c[k], p_e[k]), k
+            assert torch.equal(p_c[k].grad, p_e[k].grad), k
+        assert n_c == n_e and n_c["interp_backward"] > 0, n_c
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_global_mesh_and_init(world):

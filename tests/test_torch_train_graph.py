@@ -3,17 +3,17 @@ small BASELINE config 5: the Cornell box at 16x16, Sobol spp 2, path/MIS
 depth 2, with every leaf of albedo_and_emission_params (the albedo
 coefficients alone against the JAX package, as config5_inverse trains).
 
-On a CUDA scene ``inverse.optimize`` runs step 0 eagerly and replays one
-captured CUDA graph (``inverse.StepGraph``) for every later step, with
-``inverse.DeviceAdam`` (optax.adam's update in float32 tensor ops, its step
-count on the device). Here: a step of that form reads nothing back to the
-host and lifts no host data (the condition of the capture; the default
-``torch.optim.Adam`` reads its step counts), it equals the eager loop of
-``optimize`` where the arithmetic is the same, ``optimize`` on the CPU is
-the loop it always was bit for bit, DeviceAdam follows optax's update, and
-the loss history of the card's form follows the JAX ``optimize``. The
-capture itself runs on the card only (the ``cuda``-marked test, and
-``chip_smoke.py`` phase 24)."""
+``inverse.optimize`` runs ``inverse.DeviceAdam`` (optax.adam's update in
+float32 tensor ops, its step count on the device) on every device; on a
+CUDA scene it runs step 0 eagerly and replays one captured CUDA graph
+(``inverse.StepGraph``) for every later step. Here: a step of that form
+reads nothing back to the host and lifts no host data (the condition of
+the capture; ``torch.optim.Adam`` reads its step counts), ``optimize`` on
+the CPU is the eager DeviceAdam loop bit for bit, ``torch.optim.Adam``
+stays close to it, DeviceAdam follows optax's update, and the loss history
+follows the JAX ``optimize`` (within 1e-6 on golden configuration 1,
+where ``torch.optim.Adam`` is 3.1e-6 off). The capture itself runs on the
+card only (the ``cuda``-marked test, and ``chip_smoke.py`` phase 24)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -95,13 +95,13 @@ def test_device_step_reads_nothing_back(small):
     assert "aten._local_scalar_dense.default" in reads[torch.optim.Adam]
 
 
-def _loop_as_before(start, camera, cfg, ei, target, steps, lr):
-    """optimize's eager loop as it was before the card's route: the
-    CPU's reference, bit for bit."""
+def _eager_loop(start, camera, cfg, ei, target, steps, lr, adam):
+    """The eager loop of optimize with the optimizer class ``adam``,
+    written out: DeviceAdam's is the CPU's reference, bit for bit."""
     extract, insert = ei
     loss_fn = inv.make_loss_fn(camera, cfg, ei, target)
     params = inv.leaf_params(extract(start))
-    opt = torch.optim.Adam(list(params.values()), lr=lr)
+    opt = adam(list(params.values()), lr=lr)
     history = []
     for _ in range(steps):
         opt.zero_grad()
@@ -113,21 +113,21 @@ def _loop_as_before(start, camera, cfg, ei, target, steps, lr):
 
 
 def test_device_form_against_eager_loop(small):
-    """optimize on the CPU is the eager loop it was, bit for bit, and its
-    callback gets copies; the card's form (DeviceAdam) has the same first
-    loss and gradients bit for bit (the same forward and backward). From
-    the first update on its arithmetic is optax's, not torch.optim.Adam's
-    (float32 bias corrections, optax's order of operations): its losses
-    stay within rtol 1e-4 and its parameters within 1e-5 of max|p| of the
-    eager loop's over 4 steps."""
+    """optimize on the CPU is the eager DeviceAdam loop, bit for bit, and
+    its callback gets copies. torch.optim.Adam (which optimize ran on the
+    CPU before) has the same first loss and gradients bit for bit (the
+    same forward and backward); from the first update on its arithmetic
+    is not optax's (float64 bias corrections on the host, its own order of
+    operations): its losses stay within rtol 1e-4 and its parameters
+    within 1e-5 of max|p| of optimize's over 4 steps."""
     start, camera, cfg, lr, target_img = small
     ei = inv.albedo_and_emission_params(start)
     seen = []
     _, got, history = inv.optimize(start, camera, cfg, ei, target_img,
                                    steps=4, lr=lr,
                                    callback=lambda *a: seen.append(a))
-    want, want_history = _loop_as_before(start, camera, cfg, ei, target_img,
-                                         4, lr)
+    want, want_history = _eager_loop(start, camera, cfg, ei, target_img, 4,
+                                     lr, inv.DeviceAdam)
     assert history == want_history and history[-1] < history[0]
     assert all(torch.equal(got[k], want[k]) for k in want)
     # the callback's parameters keep the values of their step
@@ -142,14 +142,43 @@ def test_device_form_against_eager_loop(small):
     assert losses[inv.DeviceAdam] == losses[torch.optim.Adam]
     for k, p in steps[inv.DeviceAdam][1].items():
         assert torch.equal(p.grad, steps[torch.optim.Adam][1][k].grad), k
-    _, dev, dev_history = inv._optimize(start, camera, cfg, ei, target_img,
-                                        4, lr, None, inv.DeviceAdam)
-    assert dev_history[0] == want_history[0]
-    np.testing.assert_allclose(dev_history, want_history, rtol=1e-4)
-    for k, p in want.items():
+    torch_params, torch_history = _eager_loop(
+        start, camera, cfg, ei, target_img, 4, lr, torch.optim.Adam)
+    assert torch_history[0] == history[0]
+    np.testing.assert_allclose(torch_history, history, rtol=1e-4)
+    for k, p in got.items():
         scale = float(p.abs().max())
-        np.testing.assert_allclose(dev[k].numpy(), p.numpy(), rtol=0,
-                                   atol=1e-5 * scale, err_msg=k)
+        np.testing.assert_allclose(torch_params[k].numpy(), p.numpy(),
+                                   rtol=0, atol=1e-5 * scale, err_msg=k)
+
+
+def test_adam_matches_optax_on_golden_config1():
+    """The Adam fault fixed: golden configuration 1 (the diffuse sphere
+    under a point light, direct) at 8x8, stratified spp 1, every leaf of
+    albedo_and_emission_params against a black target, lr 0.02, 2 steps,
+    through the JAX optimize (optax.adam) and the port's CPU optimize: the
+    second loss, the first after an update, within rtol 1e-6 (DeviceAdam
+    is 2.8e-7 off; torch.optim.Adam, the CPU's optimizer before, 3.1e-6),
+    the first equal."""
+    from test_golden import golden1_sphere_direct
+    jscene, _, _ = golden1_sphere_direct()
+    views = [(mod_cam.PerspectiveCamera.create(
+                  (0, 0, -4), (8, 8), fov_y=40.0, look_at=(0, 0, 0)),
+              mod_integ.RenderConfig(
+                  resolution=(8, 8), integrator="direct", max_depth=1,
+                  sampler=mod_integ.SamplerConfig(kind="stratified", spp=1,
+                                                  xs=1, ys=1)))
+             for mod_cam, mod_integ in ((jcam, jinteg), (cam, integ))]
+    target = np.zeros((8, 8, 3), np.float32)
+    _, _, ref = jinv.optimize(jscene, *views[0],
+                              jinv.albedo_and_emission_params(jscene),
+                              jnp.asarray(target), steps=2, lr=0.02)
+    tscene = convert.scene_from_numpy(export_scene(jscene), "cpu")
+    _, _, got = inv.optimize(tscene, *views[1],
+                             inv.albedo_and_emission_params(tscene),
+                             torch.tensor(target), steps=2, lr=0.02)
+    assert got[0] == pytest.approx(ref[0], rel=1e-7)
+    np.testing.assert_allclose(got[1], ref[1], rtol=1e-6)
 
 
 def test_device_adam_follows_optax():
@@ -202,11 +231,11 @@ def _jax_config5(albedos, res, spp, depth):
 
 
 def test_loss_history_matches_jax():
-    """The first 3 losses of the card's form (DeviceAdam, every step as the
-    graph replays it) and of optimize on the CPU against the reference's
-    optimize (optax.adam at config 5's lr 0.1 on the albedo coefficients,
-    as config5_inverse runs it) from the same start scene and target,
-    within tests/test_torch_inverse.py's rtol 1e-3."""
+    """The first 3 losses of the eager loop (DeviceAdam, every step as the
+    graph replays it) and of optimize on the CPU, the same, against the
+    reference's optimize (optax.adam at config 5's lr 0.1 on the albedo
+    coefficients, as config5_inverse runs it) from the same start scene
+    and target, within tests/test_torch_inverse.py's rtol 1e-3."""
     jtarget, *_ = _jax_config5(entry.CONFIG5_TARGET, RES, SPP, DEPTH)
     jstart, jcamera, jcfg = _jax_config5(entry.CONFIG5_START, RES, SPP,
                                          DEPTH)
@@ -220,11 +249,10 @@ def test_loss_history_matches_jax():
                               jinv.albedo_params(jstart),
                               jnp.asarray(target.numpy()), steps=3, lr=0.1)
     ei = inv.albedo_params(tstart)
-    _, _, dev = inv._optimize(tstart, camera, cfg, ei, target, 3, 0.1, None,
-                              inv.DeviceAdam)
+    _, _, dev = inv._optimize(tstart, camera, cfg, ei, target, 3, 0.1, None)
     _, _, cpu = inv.optimize(tstart, camera, cfg, ei, target, steps=3,
                              lr=0.1)
-    assert dev[-1] < dev[0]
+    assert dev[-1] < dev[0] and cpu == dev
     np.testing.assert_allclose(dev, ref, rtol=1e-3)
     np.testing.assert_allclose(cpu, ref, rtol=1e-3)
 
@@ -245,8 +273,7 @@ def test_captured_step_on_cuda():
             ("captured", lambda: inv.optimize(start, camera, cfg, ei,
                                               target_img, steps=6, lr=lr)),
             ("eager", lambda: inv._optimize(start, camera, cfg, ei,
-                                            target_img, 6, lr, None,
-                                            inv.DeviceAdam))):
+                                            target_img, 6, lr, None))):
         before = integ.launch_counts()
         _, params, history = run()
         torch.cuda.synchronize()

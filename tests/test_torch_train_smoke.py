@@ -87,16 +87,24 @@ def test_step_launch_checks_run_on_cpu(monkeypatch):
 
 def test_sharded_and_option_phases_run_on_cpu(cs, capsys, monkeypatch):
     """16 at 16x16 spp 4 (world size 1, then two gloo ranks of one thread
-    each) against a render() film with config 5 at its small scale, and 17
-    at 16x16 (the sobol_global draws bit for bit, the option and camera
-    passes)."""
+    each; every step eager on gloo, the routes' films, losses and
+    parameters bit for bit) against a render() film with config 5 at its
+    small scale, and 17 at 16x16 (the sobol_global draws bit for bit, the
+    option and camera passes)."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     from computational_ray_tracer_tpu_torch import entry
     from computational_ray_tracer_tpu_torch.models import integrator as integ
     scene, camera, cfg = entry.cornell_setup(16, 4, device="cpu")
     film, _ = integ.render(scene, camera, cfg, chunk=4)
-    cs.sharded_phase("cpu", "cpu", film, 0.0, 0.0, res=16, spp=4,
-                     scale="small")
+    # 16c holds its two routes' parameters bit for bit, as on the card: the
+    # CPU's backward sums in the order of its threads, so one thread
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cs.sharded_phase("cpu", "cpu", film, 0.0, 0.0, res=16, spp=4,
+                         scale="small")
+    finally:
+        torch.set_num_threads(threads)
     assert not torch.distributed.is_initialized()
     cs.options_card_phase("cpu", "cpu", res=16, spp=4, small=16)
     out = capsys.readouterr().out

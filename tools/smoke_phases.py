@@ -8,8 +8,9 @@ kernels, renders the Cornell headline (512x512, spp 32, path/MIS depth 4)
 through ``render()`` after one warm-up pass, then runs the phases asked
 for, each
 printing its lines as in the smoke: ``chip_smoke.sharded_phase`` (16:
-``render_distributed`` at world size 1 over NCCL, two spawned ranks on the
-card over gloo, config 5's sharded train step),
+``render_distributed`` at world size 1 over NCCL, captured and eager in
+turns, two spawned ranks on the card over gloo, config 5's sharded train
+step, captured and eager in turns at world size 1),
 ``chip_smoke.options_card_phase`` (17: the sobol_global headline and the
 128x128 option and camera passes against the CPU),
 ``chip_smoke.raytracer_phase`` (18: the raytracer app, its resume),
