@@ -67,6 +67,7 @@ from computational_ray_tracer_tpu_torch.models import materials as mat
 from computational_ray_tracer_tpu_torch.models import lights as lgt
 from computational_ray_tracer_tpu_torch.models.scene import (
     _packet_order, scene_intersect, scene_occluded, texture_lookup)
+from computational_ray_tracer_tpu_torch.utils import metrics
 
 DIM_LAMBDA = 0
 DIM_FILTER = 1      # 2D
@@ -102,6 +103,14 @@ class SamplerConfig:
         return pixel % self.width, pixel // self.width
 
     def get_1d(self, pixel, sample_idx, dim):
+        with metrics.fine_span("crt.sample"):
+            return self._get_1d(pixel, sample_idx, dim)
+
+    def get_2d(self, pixel, sample_idx, dim):
+        with metrics.fine_span("crt.sample"):
+            return self._get_2d(pixel, sample_idx, dim)
+
+    def _get_1d(self, pixel, sample_idx, dim):
         if self.kind == "stratified":
             return rng.stratified_1d(self.seed, pixel, sample_idx, dim,
                                      self.spp, self.jitter)
@@ -114,7 +123,7 @@ class SamplerConfig:
                                        self.m)
         return rng.independent_1d(self.seed, pixel, sample_idx, dim)
 
-    def get_2d(self, pixel, sample_idx, dim):
+    def _get_2d(self, pixel, sample_idx, dim):
         if self.kind == "stratified":
             return rng.stratified_2d(self.seed, pixel, sample_idx, dim,
                                      self.xs, self.ys, self.jitter)
@@ -392,14 +401,22 @@ def _path_scan(scene, o, d, wl, pixel, sample_idx, cfg, mode=None,
     """The bounce loop of the multi-bounce integrators over cfg.max_depth
     in ``mode`` (None: the mode of ``cfg.integrator``): (L, wavelengths),
     then, with ``counts``, the alive rays entering each depth (float32
-    (max_depth,), on the device; nothing is counted without it)."""
+    (max_depth,), on the device). Eagerly while a profiler records, their
+    sum goes to the recorder's ``crt.bounce.alive`` and the lanes spent on
+    them to ``crt.bounce.lanes``; nothing is counted otherwise."""
     state = _init_path_state(scene, o, d, wl)
+    record = metrics.recording() and not metrics.capturing()
     alive = []
     for depth in range(cfg.max_depth):
-        if counts:
+        if counts or record:
             alive.append(state["alive"].sum(dtype=torch.float32))
         state = _bounce_step(scene, cfg, state, depth, pixel, sample_idx,
                              mode)
+    if record and alive:
+        metrics.count("crt.bounce.alive",
+                      torch.stack(alive).sum(dtype=torch.float64))
+        metrics.count("crt.bounce.lanes",
+                      len(alive) * state["alive"].numel())
     out = state["L"], spec.SampledWavelengths(wl.lam, state["lam_pdf"])
     return out + (torch.stack(alive),) if counts else out
 
@@ -645,7 +662,11 @@ class PassGraph:
     ``weight_sum`` in the order of :func:`render_passes`, and steps ``idx``
     by one. ``pass_fn`` must have run once eagerly before (kernel builds,
     library handles). Each replay adds the capture's launches to the
-    counters (:func:`capture_counted`). A capture that fails raises."""
+    counters (:func:`capture_counted`). A capture that fails raises.
+
+    The capture is the recorder's ``crt.pass.capture`` span, with the
+    device allocations and frees it made (``device_allocs``,
+    ``device_frees``); the captured pass is a fine ``crt.pass`` span."""
 
     def __init__(self, pass_fn, sample_idx, resolution, device):
         w, h = resolution
@@ -654,8 +675,17 @@ class PassGraph:
         self.rgb_sum = torch.zeros((h, w, 3), device=device)
         self.weight_sum = torch.zeros((h, w), device=device)
         self.graph = torch.cuda.CUDAGraph()
-        _, self.launches = capture_counted(self.graph,
-                                           lambda: self.one_pass(pass_fn))
+        with metrics.span("crt.pass.capture") as span:
+            before = _device_allocs(self.idx.device)
+            _, self.launches = capture_counted(
+                self.graph, lambda: self._traced_pass(pass_fn))
+            after = _device_allocs(self.idx.device)
+            span.attrs.update(device_allocs=after[0] - before[0],
+                              device_frees=after[1] - before[1])
+
+    def _traced_pass(self, pass_fn):
+        with metrics.fine_span("crt.pass"):
+            self.one_pass(pass_fn)
 
     def one_pass(self, pass_fn):
         """What a replay runs: the pass at ``idx`` added into the sums,
@@ -680,33 +710,51 @@ class PassGraph:
         return self.rgb_sum, self.weight_sum
 
 
+def _device_allocs(device):
+    """(device allocations, device frees) the caching allocator has made on
+    ``device`` (with its index) so far."""
+    stats = torch.cuda.memory.memory_stats_as_nested_dict(device)
+    return stats.get("num_device_alloc", 0), stats.get("num_device_free", 0)
+
+
 def accumulate(pass_fn, film, stop, chunk=1, progress=None, capture=False):
     """Passes film.spp_done .. stop - 1 of ``pass_fn(sample_idx)`` -> (rgb,
     weight) summed ``chunk`` at a time (:func:`render_passes`' order) and
     each sum added to the film; ``progress(i, film)`` after each. With
     ``capture`` the first pass runs eagerly and every later one is a
-    replay of one :class:`PassGraph` (the same bits)."""
+    replay of one :class:`PassGraph` (the same bits), released before the
+    call returns.
+
+    The call is the recorder's root span ``crt.frame``; its eager passes
+    are ``crt.pass.eager`` spans and the graph's release
+    ``crt.pass.release``."""
     h, w = film.weight_sum.shape
     resolution, device = (w, h), film.weight_sum.device
     i = int(film.spp_done)
     graph = None
-    while i < stop:
-        n = min(chunk, stop - i)
+    with metrics.span("crt.frame", root=True):
+        while i < stop:
+            n = min(chunk, stop - i)
+            if graph is not None:
+                rgb_sum, wt_sum = graph.run(n)
+            else:
+                first = 1 if capture else n
+                with metrics.span("crt.pass.eager"):
+                    rgb_sum, wt_sum = _sum_passes(pass_fn, i, first,
+                                                  resolution, device)
+                if capture and i + 1 < stop:
+                    graph = PassGraph(pass_fn, i + 1, resolution, device)
+                    if n > first:
+                        rgb_sum, wt_sum = graph.run(n - first, rgb_sum,
+                                                    wt_sum)
+            film = filmmod.Film(film.rgb_sum + rgb_sum,
+                                film.weight_sum + wt_sum, film.spp_done + n)
+            i += n
+            if progress is not None:
+                progress(i - 1, film)
         if graph is not None:
-            rgb_sum, wt_sum = graph.run(n)
-        else:
-            first = 1 if capture else n
-            rgb_sum, wt_sum = _sum_passes(pass_fn, i, first, resolution,
-                                          device)
-            if capture and i + 1 < stop:
-                graph = PassGraph(pass_fn, i + 1, resolution, device)
-                if n > first:
-                    rgb_sum, wt_sum = graph.run(n - first, rgb_sum, wt_sum)
-        film = filmmod.Film(film.rgb_sum + rgb_sum, film.weight_sum + wt_sum,
-                            film.spp_done + n)
-        i += n
-        if progress is not None:
-            progress(i - 1, film)
+            with metrics.span("crt.pass.release"):
+                graph.graph.reset()
     return film
 
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from computational_ray_tracer_tpu_torch.models import integrator as integ
+from computational_ray_tracer_tpu_torch.utils import metrics
 
 
 def albedo_params(scene):
@@ -149,7 +150,8 @@ class StepGraph:
     returns the loss. It must have run once eagerly before (kernel builds,
     the per-device constants, the optimizer's state). Each replay adds the
     capture's launches to the counters (``integrator.capture_counted``). A
-    capture that fails raises."""
+    capture that fails raises. A replay's launch is the recorder's
+    ``crt.step.launch`` span."""
 
     def __init__(self, step):
         self.graph = torch.cuda.CUDAGraph()
@@ -158,7 +160,8 @@ class StepGraph:
     def run(self):
         """Replay one step; returns the static loss, which the next replay
         overwrites."""
-        self.graph.replay()
+        with metrics.span("crt.step.launch"):
+            self.graph.replay()
         integ.add_launch_counts(self.launches)
         return self.loss
 
@@ -205,28 +208,40 @@ def _optimize(scene, camera, cfg, extract_insert, target, steps, lr,
               callback, capture=False):
     """:func:`optimize`; with ``capture`` (a CUDA scene) step 0 runs on a
     side stream and every later step replays one StepGraph, else every
-    step runs eagerly (the card's bitwise reference)."""
-    extract, insert = extract_insert
-    params = leaf_params(extract(scene))
-    opt = DeviceAdam(list(params.values()), lr=lr)
-    step = make_step(camera, cfg, extract_insert, target, params, scene, opt)
-    history, graph = [], None
-    for i in range(steps):
-        if graph is not None:
-            loss = graph.run()
-        elif capture and i == 0:
-            loss = on_side_stream(step)
-        elif capture:
-            opt.zero_grad()
-            graph = StepGraph(step)
-            loss = graph.run()
-        else:
-            loss = step()
-        history.append(float(loss))
-        if callback:
-            callback(i, {k: v.detach().clone() for k, v in params.items()},
-                     history[-1])
-    params = {k: v.detach() for k, v in params.items()}
+    step runs eagerly (the card's bitwise reference).
+
+    The call is the recorder's root span ``crt.job``. Between two replays,
+    from the loss read back to the next replay launched (the history, the
+    parameters' copies, the callback and the launch), runs a
+    ``crt.step.host`` span."""
+    with metrics.span("crt.job", root=True):
+        extract, insert = extract_insert
+        params = leaf_params(extract(scene))
+        opt = DeviceAdam(list(params.values()), lr=lr)
+        step = make_step(camera, cfg, extract_insert, target, params, scene,
+                         opt)
+        history, graph, host = [], None, None
+        for i in range(steps):
+            if graph is not None:
+                loss = graph.run()
+            elif capture and i == 0:
+                loss = on_side_stream(step)
+            elif capture:
+                opt.zero_grad()
+                graph = StepGraph(step)
+                loss = graph.run()
+            else:
+                loss = step()
+            if host is not None:
+                host.close()
+            value = float(loss)
+            host = (metrics.span("crt.step.host").open()
+                    if graph is not None and i + 1 < steps else None)
+            history.append(value)
+            if callback:
+                callback(i, {k: v.detach().clone()
+                             for k, v in params.items()}, history[-1])
+        params = {k: v.detach() for k, v in params.items()}
     return insert(scene, params), params, history
 
 

@@ -29,6 +29,7 @@ from computational_ray_tracer_tpu_torch.ops import octree_kernel as okern
 from computational_ray_tracer_tpu_torch.models.materials import (
     MaterialTable, ROUGH_CONDUCTOR)
 from computational_ray_tracer_tpu_torch.models.lights import LightTable
+from computational_ray_tracer_tpu_torch.utils import metrics
 
 TYPE_NONE, TYPE_SPHERE, TYPE_CYLINDER, TYPE_DISK, TYPE_MESH = 0, 1, 2, 3, 4
 
@@ -263,34 +264,38 @@ def scene_surface(scene: Scene, o, d, hit):
 def scene_intersect(scene: Scene, o, d, t_max, coherent=True, stats=False):
     """Closest hit across all shape types: (SurfaceInfo, material id,
     triangle tests). The third is the reference's counter of each ray with
-    ``stats``, and None without, so the render path reads no counter."""
-    hit = scene_intersect_t(scene, o, d, t_max, stats=stats)
-    si, mat_id = scene_surface(scene, o, d, hit)
+    ``stats``, and None without, so the render path reads no counter. A
+    fine ``crt.intersect`` span of the recorder."""
+    with metrics.fine_span("crt.intersect"):
+        hit = scene_intersect_t(scene, o, d, t_max, stats=stats)
+        si, mat_id = scene_surface(scene, o, d, hit)
     return si, mat_id, hit[5]
 
 
 def scene_anyhit(scene: Scene, o, d, t_max, coherent=True):
     """Does anything intersect in (0, t_max)? The octree takes the rays in
     packet order: sorted, traced and scattered back, which changes no
-    value (the reference sorts its incoherent shadow wavefronts)."""
-    hit = torch.zeros(o.shape[:-1], dtype=torch.bool, device=o.device)
-    for _, table, intersect_t, _, _ in _analytic(scene):
-        t_all = intersect_t(o, d, t_max, table)
-        hit = hit | (t_all < t_max[..., None]).any(-1)
-    if scene.mesh is None:
-        return hit
-    t_m = torch.where(hit, torch.zeros_like(t_max), t_max)
-    if scene.packed_octree is None:
-        return hit | mik.mesh_anyhit(o.contiguous(), d.contiguous(),
-                                     t_m.contiguous(), scene.mesh,
-                                     scene.tri_mask)
-    of, df, tf = o.reshape(-1, 3), d.reshape(-1, 3), t_m.reshape(-1)
-    order = _packet_order(of, df, tf > 0.0)
-    h = okern.octree_anyhit(of[order], df[order], tf[order],
-                            scene.packed_octree)
-    unsorted = torch.empty_like(h)
-    unsorted[order] = h
-    return hit | unsorted.reshape(t_m.shape)
+    value (the reference sorts its incoherent shadow wavefronts). A fine
+    ``crt.intersect`` span of the recorder."""
+    with metrics.fine_span("crt.intersect"):
+        hit = torch.zeros(o.shape[:-1], dtype=torch.bool, device=o.device)
+        for _, table, intersect_t, _, _ in _analytic(scene):
+            t_all = intersect_t(o, d, t_max, table)
+            hit = hit | (t_all < t_max[..., None]).any(-1)
+        if scene.mesh is None:
+            return hit
+        t_m = torch.where(hit, torch.zeros_like(t_max), t_max)
+        if scene.packed_octree is None:
+            return hit | mik.mesh_anyhit(o.contiguous(), d.contiguous(),
+                                         t_m.contiguous(), scene.mesh,
+                                         scene.tri_mask)
+        of, df, tf = o.reshape(-1, 3), d.reshape(-1, 3), t_m.reshape(-1)
+        order = _packet_order(of, df, tf > 0.0)
+        h = okern.octree_anyhit(of[order], df[order], tf[order],
+                                scene.packed_octree)
+        unsorted = torch.empty_like(h)
+        unsorted[order] = h
+        return hit | unsorted.reshape(t_m.shape)
 
 
 def scene_occluded(scene: Scene, p, wi, dist, eps=1e-3, n=None,

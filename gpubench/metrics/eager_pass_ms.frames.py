@@ -1,0 +1,16 @@
+"""eager_pass_ms.frames: Median over the window's frames of the port's
+``crt.pass.eager`` span: the host ms of a frame's eager first pass
+(``integrator.accumulate``), before its capture."""
+
+from gpubench import span_readers
+
+LAYER = "pass capture"
+UNIT = "ms"
+BETTER = "lower"
+SOURCE = "program_span"
+MOVES = "samples_per_s"
+WORKLOADS = ["cornell.frames", "canonical.frames"]
+
+
+def read(ctx):
+    return span_readers.median_ms(ctx, "crt.pass.eager")
