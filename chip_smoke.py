@@ -13,6 +13,15 @@ non-zero:
 0. refuse to run without a card; print the card's name and power limit;
 1. build (or load) the kernel library from csrc/ with nvcc, one process per
    source, all started together;
+25. (run right after 1) the sampler kernel (ops/rng_kernel.py) against
+   its plain version (ops/rng.py on the same CUDA tensors), bitwise, on a
+   0-d device index and a Python int, at the cells' draws: 262,144 lanes
+   Sobol' spp 32, 250,000 lanes stratified 10 x 10 and 2,304 lanes Sobol'
+   spp 8, each 1D and 2D; each timed as replays of a CUDA graph of 20
+   launches (the plain draw: of 4), with its bound from the kernel's
+   integer operations (SAMPLER_OPS at INT32_OPS_PER_S) or its bytes;
+   then its launches a pass or a step, replays included: 20 a Cornell
+   pass, 3 a canonical pass, 120 a config 5 step;
 2. the brute-force mesh kernel (closest hit) vs its plain PyTorch version
    on the card, on (a) the 512x512 Cornell camera wavefront and (b) a
    seeded 4,096-triangle soup x 262,144 rays with a finite t_max and a 50%
@@ -222,8 +231,8 @@ non-zero:
    memory its pool reserved, its launches a replay) and GRAPH_TURN_PASSES
    eager passes against as many replays, timed in turns (eager, graph,
    graph, eager, twice), each side's median s/pass; on the canonical
-   frame also the pass's three stratified walks alone, replayed from a
-   CUDA graph (walk_ms);
+   frame also the pass's three stratified draws alone, replayed from a
+   CUDA graph (draws_ms);
 24. (run after 14b) the captured train step at full width: config 5 with
    every leaf of inverse.albedo_and_emission_params; (a) one eager step of
    the card's form (inverse.make_step with DeviceAdam) with every kernel
@@ -240,7 +249,8 @@ non-zero:
    eager loop from step 1, the replays from step 2) and the medians;
 13. (printed after 22) a JSON line of the kernels, with a row for each
    brute-force mode, each launch of 4b, each launch of 10b and 12b, the
-   interpolation kernel and each case of its backward (9b); the rows of
+   interpolation kernel, each case of its backward (9b) and each of
+   phase 25's sampler draws; the rows of
    both brute-force modes, both octree modes and the interpolation
    kernel also carry their launches in phases 16 (the world-size-1 runs
    of 16a and 16c), 18-22 and 24, the backward's config 5 row its
@@ -286,6 +296,7 @@ from computational_ray_tracer_tpu_torch.ops import mesh_intersect_kernel as mik
 from computational_ray_tracer_tpu_torch.ops import octree as octmod
 from computational_ray_tracer_tpu_torch.ops import octree_kernel as okern
 from computational_ray_tracer_tpu_torch.ops import rng
+from computational_ray_tracer_tpu_torch.ops import rng_kernel as rk
 from computational_ray_tracer_tpu_torch.ops import sensor as sen
 from computational_ray_tracer_tpu_torch.ops import spectrum as spec
 from computational_ray_tracer_tpu_torch.ops import film as filmmod
@@ -311,6 +322,25 @@ PLAIN_BUDGET_S = 60.0       # the plain traversal runs on all rays if
 PLAIN_SUBSET = 65536        # a subset of this size predicts it fits
 FP32_FLOPS = 67e12          # H100 SXM, outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
+# 25: 64 int32 lanes an SM a clock, 132 SMs at 1.98 GHz (the clock of
+# FP32_FLOPS)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# 25: the cells' draws (case, lanes, kind, spp, xs, ys, sample index): the
+# Cornell frame, the canonical frame and a config 5 pass
+SAMPLER_SHAPES = (
+    ("cornell_sobol32", 512 * 512, "sobol", 32, 1, 1, 7),
+    ("canonical_stratified10x10", 500 * 500, "stratified", 100, 10, 10, 37),
+    ("config5_sobol8", 48 * 48, "sobol", 8, 1, 1, 3))
+# 25: the sampler kernel's 32-bit integer operations, as csrc/sampler.cu
+# spells them, with the fewest instructions each needs: a hash word
+# (multiply, XOR, three shift-XORs, two multiplies), a scramble (three
+# rounds of ten and a mask), the permutation's keys, add and modulo, a
+# Sobol' dimension (three a bit: shift-AND, negate-AND, XOR), the Owen
+# scramble, the float conversion and scale; a lane's index, loads and
+# store. The walk's further scrambles are not counted: where strata walk
+# the bound is low.
+SAMPLER_OPS = {"hash": 10, "scramble": 31, "permute": 24, "sobol": 96,
+               "owen": 11, "float": 3, "lane": 6, "divmod": 20}
 # 9b: the backward kernel and its plain version sum the same float32 terms
 # in different orders (the plain index_add_ on the card in atomic order);
 # the expected rounding error of a sum of m terms is about sqrt(m)/3 units
@@ -1244,17 +1274,18 @@ def canonical_phase(dragon, dev, card):
     return row, c_scene
 
 
-def walk_ms(cfg, dev):
-    """Milliseconds of one pass's stratified cycle walks (the lambda,
-    filter and lens draws of every pixel, on a device index), replayed
-    from a CUDA graph: what the masked steps cost a captured pass."""
+def draws_ms(cfg, dev):
+    """Milliseconds of one pass's three stratified draws (the lambda,
+    filter and lens draws of every pixel, on a device index: three
+    sampler kernel launches), replayed from a CUDA graph: what the draws
+    cost a captured pass."""
     s, (w, h) = cfg.sampler, cfg.resolution
     pixel = torch.arange(w * h, device=dev)
     idx = torch.zeros((), dtype=torch.int64, device=dev)
-    keys = [rng.hash_u32(pixel, dim, s.seed) for dim in (
-        integ.DIM_LAMBDA, integ.DIM_FILTER, integ.DIM_LENS)]
-    return per_launch_ms(lambda: [rng.permutation_element(idx, s.spp, k)
-                                  for k in keys], inner=1)
+    return per_launch_ms(lambda: [
+        s.get_1d(pixel, idx, integ.DIM_LAMBDA),
+        s.get_2d(pixel, idx, integ.DIM_FILTER),
+        s.get_2d(pixel, idx, integ.DIM_LENS)], inner=1)
 
 
 def graph_case(name, setup, dev, card, chunk=1, canonical=False):
@@ -1314,7 +1345,7 @@ def graph_case(name, setup, dev, card, chunk=1, canonical=False):
                 pg.run(n)
             torch.cuda.synchronize()
             turns[side].append((time.perf_counter() - t0) / n)
-        walk = walk_ms(cfg, dev) if canonical else None
+        draws = draws_ms(cfg, dev) if canonical else None
     launches = pg.launches
     del pg
     torch.cuda.empty_cache()
@@ -1329,7 +1360,7 @@ def graph_case(name, setup, dev, card, chunk=1, canonical=False):
            "eager_median_s": eager_s, "graph_median_s": graph_s,
            "eager_over_graph": eager_s / graph_s, "capture_s": capture_s,
            "pool_mb": pool_mb, "launches_per_replay": launches,
-           "walk_ms": walk, "card": card}
+           "draws_ms": draws, "card": card}
     print("phase23", json.dumps(row), flush=True)
 
 
@@ -2812,6 +2843,88 @@ def api_phase(dev, card, headline_s_pass, res=HEADLINE_RES,
     return launches
 
 
+def sampler_lane_ops(kind, two_d):
+    """The sampler kernel's integer operations a lane (SAMPLER_OPS)."""
+    o, draws = SAMPLER_OPS, 1 + two_d
+    if kind == "independent":
+        return o["lane"] + 2 * o["hash"] + draws * (o["hash"] + o["float"])
+    walk = o["scramble"] + o["permute"]
+    if kind == "stratified":
+        return (o["lane"] + 3 * o["hash"] + walk + two_d * o["divmod"]
+                + 2 * o["hash"] + draws * (o["hash"] + 2 * o["float"]))
+    return (o["lane"] + 3 * o["hash"] + walk + two_d * o["hash"]
+            + draws * (o["sobol"] + o["owen"] + o["float"]))
+
+
+def sampler_case(case, lanes, kind, spp, xs, ys, sample, dev):
+    """Phase 25's rows for one of the cells' draws: the kernel's 1D and 2D
+    draws against the plain version, bitwise, on a device index and an
+    int; each timed as replays of a CUDA graph, with its bound."""
+    pixel = torch.arange(lanes, dtype=torch.int64, device=dev)
+    idx = torch.tensor(sample, dtype=torch.int64, device=dev)
+    rows = []
+    for two_d, dim in ((False, integ.DIM_LAMBDA), (True, integ.DIM_FILTER)):
+        if two_d:
+            draw = lambda fn, s: fn[1](kind, 11, pixel, s, dim, spp, xs, ys)
+        else:
+            draw = lambda fn, s: fn[0](kind, 11, pixel, s, dim, spp)
+        kernel, plain = (rk.draw_1d, rk.draw_2d), (rk.plain_1d, rk.plain_2d)
+        want = draw(plain, idx)
+        for s in (idx, sample):
+            assert torch.equal(draw(kernel, s), want), \
+                f"25 {case} {'2d' if two_d else '1d'}: kernel != plain"
+        ms = per_launch_ms(lambda: draw(kernel, idx))
+        plain_ms = per_launch_ms(lambda: draw(plain, idx), inner=4)
+        ops = sampler_lane_ops(kind, two_d)
+        b_ms, b_by = max((lanes * ops / INT32_OPS_PER_S * 1e3, "int32 ops"),
+                         (lanes * (8 + 4 * (1 + two_d)) / HBM_BYTES_PER_S
+                          * 1e3, "bytes"))
+        rows.append({"case": case, "draw": "2d" if two_d else "1d",
+                     "kind": kind, "lanes": lanes, "spp": spp,
+                     "grid": [xs, ys], "bitwise": True, "ms": ms,
+                     "plain_ms": plain_ms, "plain_over_kernel": plain_ms / ms,
+                     "ops_per_lane": ops, "bound_ms": b_ms, "bound_by": b_by,
+                     "share": b_ms / ms, "max_abs_err": 0.0})
+    return rows
+
+
+def sampler_frames(dev):
+    """The sampler kernel's launches a pass or a step of the cells' three
+    routes, replays included: a Cornell frame (512x512, spp 32), a
+    canonical frame (500x500, spp 100, on a small stand-in mesh) and four
+    config 5 steps."""
+    per = {}
+    scene, camera, cfg = entry.cornell_setup(HEADLINE_RES, HEADLINE_SPP, dev)
+    integ.render(scene, camera, cfg, passes=1)
+    zero_counts()
+    integ.render(scene, camera, cfg)
+    per["cornell_pass"] = read_counts()["sampler"] / HEADLINE_SPP
+    c_scene = entry.canonical_scene(
+        mesh=mesh_gen.dragon_stand_in(target_tris=2000), device=dev)
+    zero_counts()
+    entry.canonical_render(CANONICAL_RES, CANONICAL_SPP, scene=c_scene)
+    per["canonical_pass"] = read_counts()["sampler"] / CANONICAL_SPP
+    start, camera, cfg, lr, target_img, ei = config5_start(dev)
+    zero_counts()
+    inv.optimize(start, camera, cfg, ei, target_img, steps=4, lr=lr)
+    per["config5_step"] = read_counts()["sampler"] / 4
+    sync(dev)
+    assert per == {"cornell_pass": 20, "canonical_pass": 3,
+                   "config5_step": 120}, per
+    return per
+
+
+def sampler_phase(dev, card):
+    """Phase 25 (see the module docstring); returns its rows."""
+    rows = []
+    for shape in SAMPLER_SHAPES:
+        rows += sampler_case(*shape, dev)
+    for row in rows:
+        print("phase25", json.dumps({**row, "card": card}), flush=True)
+    print("phase25_launches", json.dumps(sampler_frames(dev)), flush=True)
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     # phase 0
@@ -2832,6 +2945,8 @@ def main():
     print("phase1", json.dumps({
         "load_s": time.perf_counter() - t0, "nvcc_s": build.build_seconds,
         "ptxas": ptxas_report(build.build_log)}), flush=True)
+    # phase 25: the sampler kernel against its plain version
+    sampler_rows = sampler_phase(dev, card)
 
     # phase 2
     scene, camera, cfg = entry.cornell_setup(HEADLINE_RES, HEADLINE_SPP, dev)
@@ -3083,7 +3198,9 @@ def main():
         for r in [backward_rows[-1]] + backward_rows[:-1]] + [
             kernel(f"octree_{r['case']}", "octree_traverse.cu", octree_src,
                    r["launches"], r, r["max_abs_err"])
-            for r in bounce_rows + [canonical_row]]}), flush=True)
+            for r in bounce_rows + [canonical_row]] + [
+            kernel(f"sampler_{r['case']}_{r['draw']}", "sampler.cu", None,
+                   None, r, 0.0) for r in sampler_rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from computational_ray_tracer_tpu_torch.ops import rng
+from computational_ray_tracer_tpu_torch.ops import rng_kernel
 from computational_ray_tracer_tpu_torch.ops import spectrum as spec
 from computational_ray_tracer_tpu_torch.ops import filters as flt
 from computational_ray_tracer_tpu_torch.ops import sensor as sen
@@ -85,7 +86,10 @@ class SamplerConfig:
     ``stratified`` (an xs x ys grid, spp = xs * ys, jittered unless
     ``jitter`` is off), ``independent``, or ``sobol_global`` (one
     Owen-scrambled sequence over the whole image; ``width`` and ``m``, the
-    image width and log2 of its scale, are derived by RenderConfig)."""
+    image width and log2 of its scale, are derived by RenderConfig). On
+    CUDA pixel ids every draw but ``sobol_global``'s is one launch of the
+    sampler kernel (``ops/rng_kernel.py``), bit for bit with ``ops/rng.py``
+    on the card."""
     kind: str = "independent"
     spp: int = 16
     xs: int = 4
@@ -111,25 +115,14 @@ class SamplerConfig:
             return self._get_2d(pixel, sample_idx, dim)
 
     def _get_1d(self, pixel, sample_idx, dim):
-        if self.kind == "stratified":
-            return rng.stratified_1d(self.seed, pixel, sample_idx, dim,
-                                     self.spp, self.jitter)
-        if self.kind == "sobol":
-            return rng.sobol_owen_1d(self.seed, pixel, sample_idx, dim,
-                                     spp=self.spp)
         if self.kind == "sobol_global":
             px, py = self._pxpy(pixel)
             return rng.sobol_global_1d(self.seed, px, py, sample_idx, dim,
                                        self.m)
-        return rng.independent_1d(self.seed, pixel, sample_idx, dim)
+        return rng_kernel.draw_1d(self.kind, self.seed, pixel, sample_idx,
+                                  dim, self.spp, self.jitter)
 
     def _get_2d(self, pixel, sample_idx, dim):
-        if self.kind == "stratified":
-            return rng.stratified_2d(self.seed, pixel, sample_idx, dim,
-                                     self.xs, self.ys, self.jitter)
-        if self.kind == "sobol":
-            return rng.sobol_owen_2d(self.seed, pixel, sample_idx, dim,
-                                     spp=self.spp)
         if self.kind == "sobol_global":
             px, py = self._pxpy(pixel)
             if isinstance(dim, int) and dim == DIM_FILTER:
@@ -138,7 +131,9 @@ class SamplerConfig:
                                                 sample_idx, self.m)
             return rng.sobol_global_2d(self.seed, px, py, sample_idx, dim,
                                        self.m)
-        return rng.independent_2d(self.seed, pixel, sample_idx, dim)
+        return rng_kernel.draw_2d(self.kind, self.seed, pixel, sample_idx,
+                                  dim, self.spp, self.xs, self.ys,
+                                  self.jitter)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -622,6 +617,7 @@ LAUNCH_COUNTERS = {
     "octree_anyhit": (okern, "LAUNCHES_ANYHIT"),
     "interp": (ik, "LAUNCHES"),
     "interp_backward": (ik, "LAUNCHES_BACKWARD"),
+    "sampler": (rng_kernel, "LAUNCHES"),
 }
 
 

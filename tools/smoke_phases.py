@@ -3,8 +3,9 @@ headline render of its phase 4 that phase 16 is held to.
 
     python tools/smoke_phases.py [PHASE ...]
 
-PHASE is any of 16, 17, 18, 19, 20, 21, 22, 23, 24 (default: 16 17). Builds the
-kernels, renders the Cornell headline (512x512, spp 32, path/MIS depth 4)
+PHASE is any of 16, 17, 18, 19, 20, 21, 22, 23, 24, 25 (default: 16 17).
+Builds the kernels, renders the Cornell headline (512x512, spp 32, path/MIS
+depth 4)
 through ``render()`` after one warm-up pass, then runs the phases asked
 for, each
 printing its lines as in the smoke: ``chip_smoke.sharded_phase`` (16:
@@ -23,7 +24,9 @@ alive fractions and effective rays/s from this run's s/pass) and
 ``chip_smoke.graph_phase`` (23: the captured pass against the eager loop
 on five scenes, building the mesh and canonical scenes) and
 ``chip_smoke.train_graph_phase`` (24: config 5's captured train step
-against its eager loop, in turns); then one line of each phase's
+against its eager loop, in turns) and ``chip_smoke.sampler_phase`` (25:
+the sampler kernel against its plain version at the cells' draws, timed,
+and its launches a pass or a step); then one line of each phase's
 seconds. Phase
 16's config 5 line carries no 14b time (14b does not run here). Needs a
 CUDA card; imports nothing of JAX.
@@ -75,6 +78,7 @@ def main():
         "22": lambda: cs.api_phase(dev, card, s_pass),
         "23": lambda: cs.graph_phase(dev, card),
         "24": lambda: cs.train_graph_phase(dev, card),
+        "25": lambda: cs.sampler_phase(dev, card),
     }
     seconds = {"render_s_per_pass": s_pass}
     for name in sys.argv[1:] or ["16", "17"]:
