@@ -1797,7 +1797,7 @@ def sharded_render_turns(scene, camera, cfg, mesh, dev):
     captured = par.captures(mesh)
     capture_s = replay_s = per_replay = None
     if captured:
-        sums, _ = par._sharded_sums(camera, cfg, mesh)
+        sums, _, _ = par._sharded_sums(camera, cfg, mesh)
         sums(scene, 0)
         sync(dev)
         t0 = time.perf_counter()

@@ -634,20 +634,54 @@ def add_launch_counts(counts):
         setattr(mod, attr, getattr(mod, attr) + n)
 
 
-def capture_counted(graph, fn):
+def capture_counted(graph, fn, pool=None):
     """``fn()`` captured into the CUDA graph ``graph``; returns (its output,
     the launches it counted). The kernel wrappers count a launch where
     they launch it and a capture only records, so what it counted is taken
-    back here and a replay adds it again. A capture that fails raises."""
+    back here and a replay adds it again. A capture that fails raises.
+
+    Without ``pool`` the capture is ``torch.cuda.graph``'s, which empties
+    the allocator's cache and gives the graph a pool of its own. With
+    ``pool`` (a ``torch.cuda.graph_pool_handle`` that another graph holds)
+    the graph allocates from that pool and the cache is left as it is:
+    captures into one pool that outlives their graphs reuse its blocks,
+    with no device allocation or free after the first."""
     before = launch_counts()
     try:
-        with torch.cuda.graph(graph):
-            out = fn()
+        if pool is None:
+            with torch.cuda.graph(graph):
+                out = fn()
+        else:
+            out = _capture_into(graph, fn, pool)
     finally:
         launches = {key: n - before[key]
                     for key, n in launch_counts().items()}
         add_launch_counts({key: -n for key, n in launches.items()})
     return out, launches
+
+
+# The side stream of each card that every capture into a kept pool runs on
+# (see _capture_into).
+_CAPTURE_STREAMS = {}
+
+
+def _capture_into(graph, fn, pool):
+    """``torch.cuda.graph``'s capture (the card synchronised, a side
+    stream) into ``pool``, without emptying the allocator's cache. The
+    side stream is one a card, kept: the allocator reuses a pool's free
+    blocks only on the stream that allocated them, and a new stream a
+    capture (``torch.cuda.Stream()`` cycles through 32) would take new
+    ones for each of them."""
+    torch.cuda.synchronize()
+    index = torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream()
+    with torch.cuda.stream(_CAPTURE_STREAMS[index]):
+        graph.capture_begin(pool=pool)
+        try:
+            return fn()
+        finally:
+            graph.capture_end()
 
 
 class PassGraph:
@@ -673,11 +707,15 @@ class PassGraph:
         self.graph = torch.cuda.CUDAGraph()
         with metrics.span("crt.pass.capture") as span:
             before = _device_allocs(self.idx.device)
-            _, self.launches = capture_counted(
-                self.graph, lambda: self._traced_pass(pass_fn))
+            _, self.launches = self._capture(
+                lambda: self._traced_pass(pass_fn))
             after = _device_allocs(self.idx.device)
             span.attrs.update(device_allocs=after[0] - before[0],
                               device_frees=after[1] - before[1])
+
+    def _capture(self, fn):
+        """``fn`` captured into the graph (:func:`capture_counted`)."""
+        return capture_counted(self.graph, fn)
 
     def _traced_pass(self, pass_fn):
         with metrics.fine_span("crt.pass"):

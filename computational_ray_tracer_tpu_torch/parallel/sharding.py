@@ -33,9 +33,21 @@ eager step, ``render_distributed`` replays a captured render step
 (:class:`RenderStepGraph`) and ``make_train_step``'s step a captured train
 step (:class:`TrainStepGraph`), each on a sample index held on the device,
 with the eager steps' bits. Gloo's collectives cannot be captured, so on
-gloo every step runs eagerly (``captures``). On one card only world size 1
-runs over NCCL (NCCL takes one rank a device): a capture across ranks is
-unverified.
+gloo every step runs eagerly (``captures``). NCCL takes one rank a device.
+A capture across ranks is verified on four NVIDIA H100 80GB HBM3 joined by
+NVLink (NCCL 2.28.9, torch 2.11.0+cu128): ``render_distributed`` on a
+(2, 2) mesh replays its step graph in lockstep on the four ranks with the
+eager steps' bits, every rank holding the same film (the benchmark's
+``cornell.sharded4`` cell). Every frame captures its step graph anew into
+one memory pool a card kept for the process (``_step_pool``), so that
+after its first frames a process allocates and frees no device memory.
+
+A ``render_distributed`` call is the recorder's root span ``crt.frame``
+(``utils/metrics.py``): its eager steps are one ``crt.pass.eager`` span,
+the capture ``crt.pass.capture``, the captured step the fine ``crt.pass``,
+the graph's release ``crt.pass.release``; the sp and the dp all_reduce
+are the fine spans ``crt.collective.sp`` and ``crt.collective.dp``, and the
+counter ``crt.collective.bytes`` holds the bytes the call all-reduces.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from computational_ray_tracer_tpu_torch.models import integrator as integ
 from computational_ray_tracer_tpu_torch.models import inverse as inv
 from computational_ray_tracer_tpu_torch.ops import film as filmmod
+from computational_ray_tracer_tpu_torch.utils import metrics
 
 
 def _backend(device_type):
@@ -134,12 +147,13 @@ def captures(mesh):
 
 
 def _sharded_sums(camera, cfg, mesh):
-    """(sums, sensor): ``sums(scene, base_sample_idx)`` renders sample
-    base + sp on this rank's pixels and returns what a render step adds to
-    the film, every rank the whole of it: (rgb * w (H, W, 3), w (H, W))
-    summed over sp and gathered over dp. The index is a Python int or a
-    0-d int64 tensor on the scene's device (then nothing is read back to
-    the host)."""
+    """(sums, sensor, step bytes): ``sums(scene, base_sample_idx)`` renders
+    sample base + sp on this rank's pixels and returns what a render step
+    adds to the film, every rank the whole of it: (rgb * w (H, W, 3), w
+    (H, W)) summed over sp and gathered over dp. The index is a Python int
+    or a 0-d int64 tensor on the scene's device (then nothing is read back
+    to the host). Step bytes: what one step all-reduces, the rank's
+    block over sp and the zero-padded film over dp."""
     filter_obj = integ.make_filter(cfg)
     sensor = integ.make_sensor(cfg)
     w, h = cfg.resolution
@@ -153,13 +167,17 @@ def _sharded_sums(camera, cfg, mesh):
         rgb, fw = integ._pass_for_pixels(scene, camera, cfg, filter_obj,
                                          sensor, pixel, idx)
         part = torch.cat([rgb * fw[:, None], fw[:, None]], dim=1)
-        dist.all_reduce(part, group=sp_group)
+        with metrics.fine_span("crt.collective.sp"):
+            dist.all_reduce(part, group=sp_group)
         full = part.new_zeros((w * h, 4))
         full[lo:hi] = part
-        dist.all_reduce(full, group=dp_group)     # the gather over dp
+        with metrics.fine_span("crt.collective.dp"):
+            dist.all_reduce(full, group=dp_group)     # the gather over dp
         return full[:, :3].reshape(h, w, 3), full[:, 3].reshape(h, w)
 
-    return sums, sensor
+    # rgb * w and w, four float32 a pixel, over the rank's block and the
+    # padded film.
+    return sums, sensor, 16 * ((hi - lo) + w * h)
 
 
 def make_sharded_render(scene_template, camera, cfg, mesh):
@@ -169,7 +187,7 @@ def make_sharded_render(scene_template, camera, cfg, mesh):
     whole film. ``base_sample_idx`` is a Python int or a 0-d int64 tensor
     on the scene's device (sp is added on the device; nothing is read
     back to the host). Every call runs eagerly. Returns (step, sensor)."""
-    sums, sensor = _sharded_sums(camera, cfg, mesh)
+    sums, sensor, _ = _sharded_sums(camera, cfg, mesh)
     n_sp = _axis(mesh, "sp")[0]
 
     @torch.no_grad()
@@ -178,6 +196,34 @@ def make_sharded_render(scene_template, camera, cfg, mesh):
         return film.merge(filmmod.Film(rgb, wt, n_sp))
 
     return step, sensor
+
+
+# Each card's memory pool for render_distributed's step graphs, with the
+# graph that holds it (see _step_pool).
+_STEP_POOLS = {}
+
+
+def _step_pool(device):
+    """The memory pool (a ``torch.cuda.graph_pool_handle``) that
+    :class:`RenderStepGraph` captures into on ``device``, kept for the
+    process. torch frees a graph pool, on the card and in pinned host
+    memory, once no graph holds it: a graph of one fill, captured into the
+    pool once and never replayed, holds it. So a frame's capture takes the
+    blocks the last frame's graph released, where a pool of its own is
+    allocated anew and freed again every frame; and the capture leaves the
+    allocator's cache as it is (``integ.capture_counted``), so the next
+    eager step allocates nothing either. On four H100s those frees and
+    allocations took 31 ms of a rank's ~200 ms of host work a frame
+    (median), and stalled all four ranks at once by up to half a
+    second."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    if index not in _STEP_POOLS:
+        pool, holder = torch.cuda.graph_pool_handle(), torch.cuda.CUDAGraph()
+        with torch.cuda.device(index), torch.cuda.graph(holder, pool=pool):
+            torch.zeros((), device=device)
+        _STEP_POOLS[index] = pool, holder
+    return _STEP_POOLS[index][0]
 
 
 class RenderStepGraph(integ.PassGraph):
@@ -189,11 +235,16 @@ class RenderStepGraph(integ.PassGraph):
     ``Film.merge`` adds it, and steps ``idx`` by ``n_sp``. ``sums`` must
     have run once eagerly before (kernel builds, the per-device constants
     and the NCCL communicators, which start at their first collective). A
-    capture that fails raises."""
+    capture that fails raises. The graph is captured into the card's
+    :func:`_step_pool`."""
 
     def __init__(self, sums, n_sp, sample_idx, resolution, device):
         self.n_sp = n_sp
         super().__init__(sums, sample_idx, resolution, device)
+
+    def _capture(self, fn):
+        return integ.capture_counted(self.graph, fn,
+                                     pool=_step_pool(self.idx.device))
 
     def one_pass(self, pass_fn):
         rgb, wt = pass_fn(self.idx)
@@ -209,22 +260,30 @@ def render_distributed(scene, camera, cfg, mesh=None):
     reference's does). The mesh defaults to every rank on dp. On a mesh
     whose backend is NCCL (``captures``) the first step runs eagerly and
     every later step replays one :class:`RenderStepGraph` (the bits of the
-    eager steps of :func:`make_sharded_render`); on gloo every step runs
-    eagerly."""
+    eager steps of :func:`make_sharded_render`), released before the call
+    returns; on gloo every step runs eagerly. The call is the recorder's
+    root span ``crt.frame`` (see the module's docstring)."""
     if mesh is None:
         mesh = make_mesh(device_type=scene.device.type)
-    sums, sensor = _sharded_sums(camera, cfg, mesh)
+    sums, sensor, step_bytes = _sharded_sums(camera, cfg, mesh)
     n_sp = _axis(mesh, "sp")[0]
     bases = range(0, cfg.sampler.spp, n_sp)
     film = filmmod.Film.create(cfg.resolution, device=scene.device)
-    if captures(mesh) and len(bases) > 1:
-        film = film.merge(filmmod.Film(*sums(scene, 0), n_sp))
-        graph = RenderStepGraph(lambda idx: sums(scene, idx), n_sp, n_sp,
-                                cfg.resolution, scene.device)
-        rgb, wt = graph.run(len(bases) - 1, film.rgb_sum, film.weight_sum)
-        return filmmod.Film(rgb, wt, n_sp * len(bases)), sensor
-    for base in bases:
-        film = film.merge(filmmod.Film(*sums(scene, base), n_sp))
+    with metrics.span("crt.frame", root=True):
+        metrics.count("crt.collective.bytes", len(bases) * step_bytes)
+        if captures(mesh) and len(bases) > 1:
+            with metrics.span("crt.pass.eager"):
+                film = film.merge(filmmod.Film(*sums(scene, 0), n_sp))
+            graph = RenderStepGraph(lambda idx: sums(scene, idx), n_sp, n_sp,
+                                    cfg.resolution, scene.device)
+            rgb, wt = graph.run(len(bases) - 1, film.rgb_sum,
+                                film.weight_sum)
+            with metrics.span("crt.pass.release"):
+                graph.graph.reset()
+            return filmmod.Film(rgb, wt, n_sp * len(bases)), sensor
+        with metrics.span("crt.pass.eager"):
+            for base in bases:
+                film = film.merge(filmmod.Film(*sums(scene, base), n_sp))
     return film, sensor
 
 

@@ -21,8 +21,12 @@ render bit-identical parameters. JAX is imported by the tests only, never
 by the ranks.
 """
 
+import contextlib
 import dataclasses
+import gc
 import os
+import types
+import weakref
 
 import numpy as np
 import pytest
@@ -35,6 +39,7 @@ from computational_ray_tracer_tpu_torch.models import inverse as tinv
 from computational_ray_tracer_tpu_torch.ops import camera as tcam
 from computational_ray_tracer_tpu_torch.ops import film as tfilm
 from computational_ray_tracer_tpu_torch.parallel import sharding as par
+from computational_ray_tracer_tpu_torch.utils import metrics
 
 LAYOUTS = [(8, 1), (4, 2), (2, 4), (1, 1)]
 INTEGRATORS = ["direct", "walk", "simple", "path"]
@@ -133,6 +138,17 @@ def _adam(scene, mesh):
     return out
 
 
+def _frame_record(first):
+    """The spans a rank recorded after span id ``first`` (name, request,
+    parent) and the counters of its ``crt.frame``'s request."""
+    spans = [s for s in metrics.spans() if s["id"] > first]
+    roots = [s for s in spans if s["name"] == "crt.frame"]
+    return {"spans": [(s["name"], s["request"], s["parent"]) for s in spans],
+            "root": roots[0]["id"] if roots else None,
+            "counters": metrics.counters(roots[0]["request"]) if roots
+            else {}}
+
+
 def _rank_main(rank, world, tmp):
     """One rank: join the group, rebuild the scenes, run every layout of
     this world size, write the results to tmp/rank<rank>_<world>.pt."""
@@ -156,10 +172,13 @@ def _rank_main(rank, world, tmp):
         mesh = par.make_mesh(n_dp, n_sp, device_type="cpu")
         res = out[(n_dp, n_sp)] = {"shape": tuple(mesh.mesh.shape)}
         for name, key, cfg in _cases(n_dp, n_sp):
+            first = metrics.RECORDER.last_id
             film, _ = par.render_distributed(
                 scenes[key], _camera(16) if key == "sphere16"
                 else cornell_camera, cfg, mesh)
             res[name] = film
+            if name == "film":
+                res["frame_record"] = _frame_record(first)
         if (n_dp, n_sp) in GRAD_LAYOUTS.values():
             res["grad"] = _grad(scenes["sphere8"], mesh)
         if n_dp > 1:
@@ -302,6 +321,153 @@ def test_sharded_matches_jax_render_distributed(world):
                                    np.asarray(ref.weight_sum), rtol=1e-5,
                                    atol=2e-6)
         assert r["film"].spp_done == int(ref.spp_done) == 4
+
+
+def test_render_distributed_spans(world):
+    """Each rank's (4, 2) render_distributed of 16x16 at spp 4 (2 steps):
+    one ``crt.frame`` root and inside it one ``crt.pass.eager`` (gloo:
+    every step eager, no capture, no release; the fine spans off without
+    a profiler), and ``crt.collective.bytes`` = steps x (the rank's 64
+    pixels over sp + the zero-padded 256 over dp) x 4 floats x 4 bytes."""
+    for r in _layout(world, 4, 2):
+        rec = r["frame_record"]
+        root = rec["root"]
+        assert rec["spans"] == [("crt.frame", root, None),
+                                ("crt.pass.eager", root, root)]
+        assert rec["counters"] == {"crt.collective.bytes":
+                                   2 * 16 * (64 + 256)}
+
+
+def test_render_distributed_releases_its_graph(world, one_rank,
+                                               monkeypatch):
+    """On a one-rank world with the step graph stood in for on the CPU
+    (a graph that runs the captured step at each replay), the captured
+    route gives the eager route's bits, captures into the card's kept
+    pool, resets its graph under ``crt.pass.release`` before it returns
+    and leaves no graph alive."""
+    from test_torch_tracing import _Graph, _capture
+    resets, made, pools = [], [], []
+    pool = object()
+
+    def capture(graph, fn, pool=None):
+        pools.append(pool)
+        return _capture(graph, fn)
+
+    class Graph(_Graph):
+        def reset(self):
+            resets.append(metrics.RECORDER.stack[-1].name)
+            super().reset()
+
+    class StepGraph(par.RenderStepGraph):
+        def __init__(self, *args):
+            super().__init__(*args)
+            made.append(weakref.ref(self))
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(tinteg, "capture_counted", capture)
+    monkeypatch.setattr(tinteg, "_device_allocs", lambda device: (0, 0))
+    monkeypatch.setattr(par, "_step_pool", lambda device: pool)
+    monkeypatch.setattr(par, "RenderStepGraph", StepGraph)
+    scene, cfg = world[1]["sphere8"], _cfg(8, 4)
+    want, _ = par.render_distributed(scene, _camera(8), cfg, one_rank)
+    assert made == []
+    monkeypatch.setattr(par, "captures", lambda mesh: True)
+    first = metrics.RECORDER.last_id
+    got, _ = par.render_distributed(scene, _camera(8), cfg, one_rank)
+    gc.collect()
+    assert resets == ["crt.pass.release"]
+    assert pools == [pool]
+    assert len(made) == 1 and made[0]() is None
+    names = [s["name"] for s in metrics.spans() if s["id"] > first]
+    assert names == ["crt.frame", "crt.pass.eager", "crt.pass.capture",
+                     "crt.pass.release"]
+    assert torch.equal(got.rgb_sum, want.rgb_sum)
+    assert torch.equal(got.weight_sum, want.weight_sum)
+    assert got.spp_done == want.spp_done == 4
+
+
+def test_capture_into_a_pool_keeps_the_cache(monkeypatch):
+    """``capture_counted`` with a pool: the card synchronised, the capture
+    into that pool on the card's one kept side stream, the allocator's
+    cache not emptied, ``capture_end`` reached when the captured function
+    raises, and the launches it counted taken back either way."""
+    calls, streams = [], []
+
+    class Graph:
+        def capture_begin(self, pool=None):
+            calls.append(("begin", pool))
+
+        def capture_end(self):
+            calls.append(("end",))
+
+    @contextlib.contextmanager
+    def stream(s):
+        calls.append(("stream", s))
+        yield
+
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda: calls.append(("sync",)))
+    monkeypatch.setattr(torch.cuda, "empty_cache",
+                        lambda: calls.append(("empty_cache",)))
+    monkeypatch.setattr(torch.cuda, "Stream",
+                        lambda: streams.append(None) or f"side{len(streams)}")
+    monkeypatch.setattr(torch.cuda, "stream", stream)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(tinteg, "_CAPTURE_STREAMS", {})
+    pool = ("pool", 7)
+
+    def captured():
+        tinteg.add_launch_counts({"interp": 3})
+        calls.append(("fn",))
+        return "out"
+    before = tinteg.launch_counts()
+    out, launches = tinteg.capture_counted(Graph(), captured, pool=pool)
+    assert (out, launches["interp"]) == ("out", 3)
+    assert calls == [("sync",), ("stream", "side1"), ("begin", pool),
+                     ("fn",), ("end",)]
+
+    def fails():
+        tinteg.add_launch_counts({"interp": 2})
+        raise RuntimeError("capture failed")
+    calls.clear()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        tinteg.capture_counted(Graph(), fails, pool=pool)
+    assert calls[1] == ("stream", "side1") and calls[-1] == ("end",)
+    assert tinteg.launch_counts() == before and len(streams) == 1
+
+
+def test_step_pool_is_kept_per_card(monkeypatch):
+    """``_step_pool``: one pool handle a card for the process, made once
+    and held by a one-fill graph captured into it; a device without an
+    index is the current card."""
+    handles, holders = iter(range(100)), []
+
+    class Graph:
+        pass
+
+    @contextlib.contextmanager
+    def graph(g, pool=None):
+        holders.append((g, pool))
+        yield
+
+    monkeypatch.setattr(par, "_STEP_POOLS", {})
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle",
+                        lambda: ("handle", next(handles)))
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    monkeypatch.setattr(torch, "zeros", lambda *a, **kw: None)
+    card0, card1 = (types.SimpleNamespace(index=0),
+                    types.SimpleNamespace(index=1))
+    first = par._step_pool(card0)
+    assert par._step_pool(card0) == first
+    second = par._step_pool(card1)
+    assert second != first
+    assert par._step_pool(types.SimpleNamespace(index=None)) == second
+    assert [pool for _, pool in holders] == [first, second]
+    assert [par._STEP_POOLS[i][1] for i in (0, 1)] == [g for g, _ in holders]
 
 
 def test_sharded_train_step_runs_and_reduces(world):
