@@ -15,7 +15,8 @@ non-zero:
    source, all started together;
 25. (run right after 1) the sampler kernel (ops/rng_kernel.py) against
    its plain version (ops/rng.py on the same CUDA tensors), bitwise, on a
-   0-d device index and a Python int, at the cells' draws: 262,144 lanes
+   0-d device index and a Python int, each under the int seed and under a
+   0-d device seed (rng_kernel.seed_word), at the cells' draws: 262,144 lanes
    Sobol' spp 32, 250,000 lanes stratified 10 x 10 and 2,304 lanes Sobol'
    spp 8, each 1D and 2D; each timed as replays of a CUDA graph of 20
    launches (the plain draw: of 4), with its bound from the kernel's
@@ -227,10 +228,23 @@ non-zero:
    after the first, against the eager loop of render_pass /
    canonical_pass over the same Python indices (integrator.accumulate
    without capture): the films bitwise equal and every kernel's launch
-   count equal; then one PassGraph captured alone (its seconds, the
-   memory its pool reserved, its launches a replay) and GRAPH_TURN_PASSES
-   eager passes against as many replays, timed in turns (eager, graph,
-   graph, eager, twice), each side's median s/pass; on the canonical
+   count equal; on the four render() scenes, the pass render() keeps
+   across calls (integrator.KeptPass), each call's route read from the
+   crt.graph.* counters (kept_routes) and its film and launches held to
+   the eager loop's: a new seed replays the kept graph (sobol_global,
+   whose seed is in the key, captures anew), a resumed render(film=,
+   passes=) replays it for both halves, so does a call after the camera's
+   frame cache is cleared and the allocator churned, and a new camera or
+   a rebound scene tensor captures anew; the calls that miss, timed: MISS_CALLS
+   render() calls of MISS_PASSES passes, each with a camera moved anew,
+   against as many calls of render()'s route before it kept a pass
+   (accumulate with capture and no KeptPass: the graph released in the
+   call), in turns (capture, render, render, capture), each side's median
+   s/call (miss_s_per_call); then one PassGraph captured
+   alone (its seconds, the memory its pool reserved, its launches a
+   replay) and GRAPH_TURN_PASSES eager passes against as many replays,
+   timed in turns (eager, graph, graph, eager, twice), each side's median
+   s/pass; on the canonical
    frame also the pass's three stratified draws alone, replayed from a
    CUDA graph (draws_ms);
 24. (run after 14b) the captured train step at full width: config 5 with
@@ -303,8 +317,8 @@ from computational_ray_tracer_tpu_torch.ops import film as filmmod
 from computational_ray_tracer_tpu_torch.ops import triangle as trimod
 from computational_ray_tracer_tpu_torch.parallel import sharding as par
 from computational_ray_tracer_tpu_torch.utils import (
-    asset_cache, checkpoint, config as cfgmod, image, mesh_gen, obj_loader,
-    ply_loader)
+    asset_cache, checkpoint, config as cfgmod, image, mesh_gen, metrics,
+    obj_loader, ply_loader)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "computational_ray_tracer_tpu_torch/csrc/"
@@ -382,6 +396,8 @@ RANKS_TIMEOUT_S = 300       # 16b's deadline (their time: PERF.md section 5)
 # 17: the sobol_global sample values checked bit for bit, and the new
 # options and cameras of the 128x128 card-vs-CPU passes.
 GRAPH_TURN_PASSES = 8       # 23: passes a turn, eager or replayed
+MISS_CALLS = 3              # 23: render() calls a turn, each a new camera
+MISS_PASSES = 2             # 23: passes a call that misses (eager, replay)
 GLOBAL_DIMS = range(13)
 GLOBAL_SAMPLES = (0, 31)
 NEW_OPTIONS = {
@@ -1288,6 +1304,131 @@ def draws_ms(cfg, dev):
         s.get_2d(pixel, idx, integ.DIM_LENS)], inner=1)
 
 
+def eager_film(scene, camera, cfg, chunk, film=None, stop=None):
+    """(film, launches) of render()'s eager loop (accumulate without
+    capture) from ``film`` (None: a new one) to ``stop`` (None: spp)."""
+    flt, sensor = integ.make_filter(cfg), integ.make_sensor(cfg)
+    film = film or filmmod.Film.create(cfg.resolution, scene.device)
+    zero_counts()
+    with torch.no_grad():
+        film = integ.accumulate(
+            lambda i: integ.render_pass(scene, camera, cfg, flt, sensor, i),
+            film, stop or cfg.sampler.spp, chunk)
+    return film, read_counts()
+
+
+def kept_film(scene, camera, cfg, chunk, film=None, passes=None):
+    """(film, launches, route) of one render() call; the route from the
+    crt.graph.* counters of its frame: "kept" (replayed the kept graph),
+    "captured" or "eager"."""
+    metrics.reset()
+    zero_counts()
+    with torch.no_grad():
+        film, _ = integ.render(scene, camera, cfg, film=film, passes=passes,
+                               chunk=chunk)
+    got = metrics.counters()
+    route = ("kept" if got.get("crt.graph.kept") else "captured"
+             if got.get("crt.graph.captured") else "eager")
+    return film, read_counts(), route
+
+
+def same_film(a, b):
+    return (torch.equal(a.rgb_sum, b.rgb_sum)
+            and torch.equal(a.weight_sum, b.weight_sum)
+            and a.spp_done == b.spp_done)
+
+
+def kept_case(name, setup, dev, chunk):
+    """Phase 23's checks of the pass render() keeps across calls (see the
+    module docstring), on a scene that render() has just captured for:
+    each call's route, film and launches against the eager loop's.
+    Returns {check: route} and, under "miss_s_per_call", miss_turns'."""
+    scene, camera, cfg = setup
+    spp = cfg.sampler.spp
+    reseeded = dataclasses.replace(cfg, sampler=dataclasses.replace(
+        cfg.sampler, seed=(1 << 31) + 77))
+    new_seed = ("captured" if cfg.sampler.kind == "sobol_global"
+                else "kept")
+    routes = {}
+
+    def check(what, route, got, want):
+        routes[what] = got[2]
+        assert got[2] == route, f"23 {name} {what}: route {got[2]}"
+        assert same_film(got[0], want[0]), \
+            f"23 {name} {what}: the film differs from the eager loop's"
+        assert got[1] == want[1], f"23 {name} {what}: launches {got[1]}"
+
+    check("new_seed", new_seed, kept_film(scene, camera, reseeded, chunk),
+          eager_film(scene, camera, reseeded, chunk))
+    half = kept_film(scene, camera, reseeded, chunk, passes=spp // 2)
+    check("resume_first", "kept", half,
+          eager_film(scene, camera, reseeded, chunk, stop=spp // 2))
+    check("resume_rest", "kept",
+          kept_film(scene, camera, reseeded, chunk, film=half[0]),
+          eager_film(scene, camera, reseeded, chunk,
+                     film=eager_film(scene, camera, reseeded, chunk,
+                                     stop=spp // 2)[0]))
+    # the camera's frame cache cleared and the allocator churned between
+    # calls: the kept pass holds what its replays read
+    cam._frame.cache_clear()
+    churn = [torch.empty(1 << k, device=dev) for k in range(10, 28)]
+    del churn
+    torch.cuda.empty_cache()
+    check("frame_cache_cleared", "kept",
+          kept_film(scene, camera, reseeded, chunk),
+          eager_film(scene, camera, reseeded, chunk))
+    moved = dataclasses.replace(camera, position=tuple(
+        float(x) + 0.01 for x in camera.position))
+    check("new_camera", "captured", kept_film(scene, moved, reseeded, chunk),
+          eager_film(scene, moved, reseeded, chunk))
+    scene.materials.albedo_coeffs = scene.materials.albedo_coeffs.clone()
+    check("rebound_tensor", "captured",
+          kept_film(scene, moved, reseeded, chunk),
+          eager_film(scene, moved, reseeded, chunk))
+    routes["miss_s_per_call"] = miss_turns(name, scene, moved, reseeded,
+                                           chunk)
+    return routes
+
+
+def miss_turns(name, scene, camera, cfg, chunk):
+    """Phase 23's timing of the calls that miss the kept pass: per side,
+    the seconds of each of MISS_CALLS calls of MISS_PASSES passes, each on
+    a camera moved anew, in turns; "render" is render() (each call a new
+    key: eager pass, capture kept, the old graph released), "capture" the
+    route before render() kept a pass (accumulate with capture and no
+    KeptPass, the graph released in the call)."""
+    moves = iter(range(1, 1000))
+    turns = {"capture": [], "render": []}
+
+    def call(side):
+        moved = dataclasses.replace(camera, position=tuple(
+            float(x) + 1e-3 * next(moves) for x in camera.position))
+        film = filmmod.Film.create(cfg.resolution, scene.device)
+        metrics.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if side == "render":
+            integ.render(scene, moved, cfg, film=film, passes=MISS_PASSES,
+                         chunk=chunk)
+        else:
+            flt, sensor = integ.make_filter(cfg), integ.make_sensor(cfg)
+            integ.accumulate(
+                lambda i: integ.render_pass(scene, moved, cfg, flt, sensor,
+                                            i),
+                film, MISS_PASSES, chunk, capture=True)
+        torch.cuda.synchronize()
+        turns[side].append(time.perf_counter() - t0)
+        assert metrics.counters().get("crt.graph.captured") == 1, \
+            f"23 {name} miss {side}: {metrics.counters()}"
+
+    with torch.no_grad():
+        for side in ("capture", "render", "render", "capture"):
+            for _ in range(MISS_CALLS):
+                call(side)
+    return {side: {"s": t, "median_s": statistics.median(t)}
+            for side, t in turns.items()}
+
+
 def graph_case(name, setup, dev, card, chunk=1, canonical=False):
     """One scene of phase 23 (see the module docstring)."""
     scene, camera, cfg = setup
@@ -1321,6 +1462,7 @@ def graph_case(name, setup, dev, card, chunk=1, canonical=False):
     assert counts[True] == counts[False], f"{name}: launches {counts}"
     assert films[True].spp_done == spp
     del films
+    kept = None if canonical else kept_case(name, setup, dev, chunk)
 
     n = min(GRAPH_TURN_PASSES, spp)
     with torch.no_grad():
@@ -1360,7 +1502,7 @@ def graph_case(name, setup, dev, card, chunk=1, canonical=False):
            "eager_median_s": eager_s, "graph_median_s": graph_s,
            "eager_over_graph": eager_s / graph_s, "capture_s": capture_s,
            "pool_mb": pool_mb, "launches_per_replay": launches,
-           "draws_ms": draws, "card": card}
+           "draws_ms": draws, "kept_routes": kept, "card": card}
     print("phase23", json.dumps(row), flush=True)
 
 
@@ -2844,15 +2986,16 @@ def api_phase(dev, card, headline_s_pass, res=HEADLINE_RES,
 
 
 def sampler_lane_ops(kind, two_d):
-    """The sampler kernel's integer operations a lane (SAMPLER_OPS)."""
+    """The sampler kernel's integer operations a lane (SAMPLER_OPS), the
+    seed's hash included (every lane takes it)."""
     o, draws = SAMPLER_OPS, 1 + two_d
     if kind == "independent":
-        return o["lane"] + 2 * o["hash"] + draws * (o["hash"] + o["float"])
+        return o["lane"] + 3 * o["hash"] + draws * (o["hash"] + o["float"])
     walk = o["scramble"] + o["permute"]
     if kind == "stratified":
-        return (o["lane"] + 3 * o["hash"] + walk + two_d * o["divmod"]
+        return (o["lane"] + 4 * o["hash"] + walk + two_d * o["divmod"]
                 + 2 * o["hash"] + draws * (o["hash"] + 2 * o["float"]))
-    return (o["lane"] + 3 * o["hash"] + walk + two_d * o["hash"]
+    return (o["lane"] + 4 * o["hash"] + walk + two_d * o["hash"]
             + draws * (o["sobol"] + o["owen"] + o["float"]))
 
 
@@ -2862,16 +3005,20 @@ def sampler_case(case, lanes, kind, spp, xs, ys, sample, dev):
     int; each timed as replays of a CUDA graph, with its bound."""
     pixel = torch.arange(lanes, dtype=torch.int64, device=dev)
     idx = torch.tensor(sample, dtype=torch.int64, device=dev)
+    seed_dev = torch.tensor(rk.seed_word(11), dtype=torch.int64, device=dev)
     rows = []
     for two_d, dim in ((False, integ.DIM_LAMBDA), (True, integ.DIM_FILTER)):
         if two_d:
-            draw = lambda fn, s: fn[1](kind, 11, pixel, s, dim, spp, xs, ys)
+            draw = lambda fn, s, seed=11: fn[1](kind, seed, pixel, s, dim,
+                                                spp, xs, ys)
         else:
-            draw = lambda fn, s: fn[0](kind, 11, pixel, s, dim, spp)
+            draw = lambda fn, s, seed=11: fn[0](kind, seed, pixel, s, dim,
+                                                spp)
         kernel, plain = (rk.draw_1d, rk.draw_2d), (rk.plain_1d, rk.plain_2d)
         want = draw(plain, idx)
-        for s in (idx, sample):
-            assert torch.equal(draw(kernel, s), want), \
+        for s, seed in ((idx, 11), (sample, 11), (idx, seed_dev),
+                        (sample, seed_dev)):
+            assert torch.equal(draw(kernel, s, seed), want), \
                 f"25 {case} {'2d' if two_d else '1d'}: kernel != plain"
         ms = per_launch_ms(lambda: draw(kernel, idx))
         plain_ms = per_launch_ms(lambda: draw(plain, idx), inner=4)
@@ -2881,7 +3028,8 @@ def sampler_case(case, lanes, kind, spp, xs, ys, sample, dev):
                           * 1e3, "bytes"))
         rows.append({"case": case, "draw": "2d" if two_d else "1d",
                      "kind": kind, "lanes": lanes, "spp": spp,
-                     "grid": [xs, ys], "bitwise": True, "ms": ms,
+                     "grid": [xs, ys], "bitwise": True,
+                     "device_seed_bitwise": True, "ms": ms,
                      "plain_ms": plain_ms, "plain_over_kernel": plain_ms / ms,
                      "ops_per_lane": ops, "bound_ms": b_ms, "bound_by": b_by,
                      "share": b_ms / ms, "max_abs_err": 0.0})

@@ -9,11 +9,12 @@
 //   250 to 1,200 elementwise kernels; this kernel is one.
 //
 // What it computes, for each lane r: the draw of pixel id pixel[r] at the
-//   sample index (one value for every lane, read from a 0-d device tensor or
-//   given by the host) in dimension dim, as float32 (n,) for a 1D draw or
-//   (n, 2) for a 2D draw, for the kinds independent, stratified (jittered or
-//   centred) and sobol (Owen-scrambled, padded per pixel, the index shuffled
-//   by a permutation of [0, spp)), bit for bit with ops/rng.py:
+//   sample index and under the seed (one value each for every lane, read
+//   from a 0-d device tensor or given by the host) in dimension dim, as
+//   float32 (n,) for a 1D draw or (n, 2) for a 2D draw, for the kinds
+//   independent, stratified (jittered or centred) and sobol (Owen-scrambled,
+//   padded per pixel, the index shuffled by a permutation of [0, spp)), bit
+//   for bit with ops/rng.py:
 //   - mix_bits, hash_u32 and _mul are uint32 multiplies, shifts and XORs;
 //   - permutation_element is Kensler's cycle walk as a per-lane loop of at
 //     most (w + 1) - n steps that stops once x < n: the plain version's
@@ -43,9 +44,12 @@
 // What the design does about it: one pass over the lanes, one thread a lane,
 //   every intermediate in registers, no shared memory. A 2D draw computes
 //   what its two dimensions share once: the hash prefix, the shuffled index
-//   or the stratum. Everything uniform across lanes (the seed's hash, the
-//   permutation's mask and walk length, the reciprocals, the direction
-//   numbers) is computed on the host and passed by value.
+//   or the stratum. Everything else uniform across lanes (the permutation's
+//   mask and walk length, the reciprocals, the direction numbers) is
+//   computed on the host and passed by value. The seed, like the sample
+//   index, is given by the host or read from a 0-d device tensor (a captured
+//   pass kept across frames, each with its own seed); every lane hashes it,
+//   one hash word against the ~230 of a draw.
 
 #include <cstdint>
 
@@ -62,8 +66,7 @@ enum Kind : int { kIndependent = 0, kStratified = 1, kSobol = 2 };
 // The draw's uniform parameters, filled by the wrapper (ops/rng_kernel.py,
 // SamplerParams): the same layout on both sides.
 struct CrtSamplerParams {
-  uint32_t seed;       // seed & 0xFFFFFFFF
-  uint32_t seed_hash;  // hash_u32(seed): the prefix of the seed-first hashes
+  uint32_t seed;       // seed & 0xFFFFFFFF (unread with a device seed)
   uint32_t dim0;       // dim & 0xFFFFFFFF
   uint32_t dim1;       // (dim + 1) & 0xFFFFFFFF
   uint32_t n;          // the permutation's size: spp, or xs * ys (2D strata)
@@ -90,6 +93,9 @@ __device__ __forceinline__ uint32_t mix_bits(uint32_t x) {
 __device__ __forceinline__ uint32_t hash_step(uint32_t h, uint32_t a) {
   return mix_bits(h ^ (a * 0x01000193u));
 }
+
+// hash_u32's initial word: hash_u32(a) is hash_step(kHashInit, a).
+constexpr uint32_t kHashInit = 0x9E3779B9u;
 
 __device__ __forceinline__ float u32_to_float(uint32_t bits) {
   return __fmul_rn(__uint2float_rn(bits >> 8), 5.9604644775390625e-08f);
@@ -151,24 +157,28 @@ template <int KIND, bool TWO_D>
 __global__ void __launch_bounds__(kThreads)
 sampler_kernel(const int64_t* __restrict__ pixel, int n,
                const int64_t* __restrict__ sample_dev, long long sample_host,
+               const int64_t* __restrict__ seed_dev,
                const CrtSamplerParams q, float* __restrict__ out) {
   const int r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= n) return;
   const uint32_t px = static_cast<uint32_t>(__ldg(pixel + r));
   const uint32_t s = static_cast<uint32_t>(
       sample_dev != nullptr ? __ldg(sample_dev) : sample_host);
+  const uint32_t seed =
+      seed_dev != nullptr ? static_cast<uint32_t>(__ldg(seed_dev)) : q.seed;
+  const uint32_t seed_hash = hash_step(kHashInit, seed);  // hash_u32(seed)
   float v0, v1 = 0.0f;
   if (KIND == kIndependent) {
-    const uint32_t h = hash_step(hash_step(q.seed_hash, px), s);
+    const uint32_t h = hash_step(hash_step(seed_hash, px), s);
     v0 = u32_to_float(hash_step(h, q.dim0));
     if (TWO_D) v1 = u32_to_float(hash_step(h, q.dim1));
   } else if (KIND == kStratified) {
     const uint32_t key = hash_step(
-        hash_step(hash_step(0x9E3779B9u, px), q.dim0), q.seed);
+        hash_step(hash_step(kHashInit, px), q.dim0), seed);
     const uint32_t stratum = permute(s, key, q);
     float d0 = 0.5f, d1 = 0.5f;
     if (q.jitter) {
-      const uint32_t h = hash_step(hash_step(q.seed_hash, px), s);
+      const uint32_t h = hash_step(hash_step(seed_hash, px), s);
       d0 = u32_to_float(hash_step(h, q.dim0));
       if (TWO_D) d1 = u32_to_float(hash_step(h, q.dim1));
     }
@@ -181,7 +191,7 @@ sampler_kernel(const int64_t* __restrict__ pixel, int n,
       v0 = __fmul_rn(__fadd_rn(__uint2float_rn(stratum), d0), q.scale0);
     }
   } else {
-    const uint32_t h = hash_step(q.seed_hash, px);
+    const uint32_t h = hash_step(seed_hash, px);
     const uint32_t h0 = hash_step(h, q.dim0);
     const uint32_t idx = permute(s, hash_step(h0, 0x55555555u), q);
     v0 = u32_to_float(owen(sobol_u32(idx, q.sobol[0]), h0));
@@ -200,14 +210,14 @@ sampler_kernel(const int64_t* __restrict__ pixel, int n,
 template <int KIND>
 void launch_kind(bool two_d, dim3 grid, cudaStream_t stream,
                  const int64_t* pixel, int n, const int64_t* sample_dev,
-                 long long sample_host, const CrtSamplerParams& q,
-                 float* out) {
+                 long long sample_host, const int64_t* seed_dev,
+                 const CrtSamplerParams& q, float* out) {
   if (two_d) {
     sampler_kernel<KIND, true><<<grid, kThreads, 0, stream>>>(
-        pixel, n, sample_dev, sample_host, q, out);
+        pixel, n, sample_dev, sample_host, seed_dev, q, out);
   } else {
     sampler_kernel<KIND, false><<<grid, kThreads, 0, stream>>>(
-        pixel, n, sample_dev, sample_host, q, out);
+        pixel, n, sample_dev, sample_host, seed_dev, q, out);
   }
 }
 
@@ -216,11 +226,13 @@ void launch_kind(bool two_d, dim3 grid, cudaStream_t stream,
 // One draw of kind 0 (independent), 1 (stratified) or 2 (sobol), 1D
 // (two_d = 0: out (n,) float32) or 2D (out (n, 2) float32), for the pixel ids
 // pixel (n,) int64 at the sample index *sample_dev (a 0-d int64 device
-// tensor) or, where sample_dev is null, sample_host. Launched on ``stream``;
-// returns cudaGetLastError() (0: launched).
+// tensor) or, where sample_dev is null, sample_host, under the seed
+// *seed_dev (a 0-d int64 device tensor, its low 32 bits) or, where seed_dev
+// is null, params->seed. Launched on ``stream``; returns cudaGetLastError()
+// (0: launched).
 extern "C" int crt_sampler_draw(int kind, int two_d, const int64_t* pixel,
                                 int n, const int64_t* sample_dev,
-                                long long sample_host,
+                                long long sample_host, const int64_t* seed_dev,
                                 const CrtSamplerParams* params, float* out,
                                 void* stream) {
   if (n < 0 || kind < kIndependent || kind > kSobol || params == nullptr ||
@@ -235,13 +247,13 @@ extern "C" int crt_sampler_draw(int kind, int two_d, const int64_t* pixel,
   const bool two = two_d != 0;
   if (kind == kIndependent) {
     launch_kind<kIndependent>(two, grid, s, pixel, n, sample_dev,
-                              sample_host, q, out);
+                              sample_host, seed_dev, q, out);
   } else if (kind == kStratified) {
     launch_kind<kStratified>(two, grid, s, pixel, n, sample_dev, sample_host,
-                             q, out);
+                             seed_dev, q, out);
   } else {
-    launch_kind<kSobol>(two, grid, s, pixel, n, sample_dev, sample_host, q,
-                        out);
+    launch_kind<kSobol>(two, grid, s, pixel, n, sample_dev, sample_host,
+                        seed_dev, q, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -166,7 +166,7 @@ def load_library():
         lib.crt_dense_interp_backward.argtypes = [p, i, i, p, p, i, p, p, p]
         lib.crt_dense_interp_backward.restype = i
         lib.crt_sampler_draw.argtypes = [i, i, p, i, p, ctypes.c_longlong, p,
-                                         p, p]
+                                         p, p, p]
         lib.crt_sampler_draw.restype = i
         lib.crt_error_string.argtypes = [i]
         lib.crt_error_string.restype = ctypes.c_char_p

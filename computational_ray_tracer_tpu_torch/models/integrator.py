@@ -30,7 +30,11 @@ on the scene's device; on a tensor it reads nothing back to the host and
 makes no host copy, so ``render()`` on a CUDA scene captures one pass in
 a CUDA graph (:class:`PassGraph`, the reference's jitted ``chunk_pass``)
 and replays it for every pass after the first, stepping the index on the
-device; the films are the eager loop's bit for bit.
+device; the films are the eager loop's bit for bit. The sampler's seed is
+a device input of that graph too, so ``render()`` keeps it across calls
+(:class:`KeptPass`, as the reference keeps its compiled program in
+``_RENDER_PROG_CACHE``): a later call on the same scene, camera and
+config, whatever its seed, replays it for every pass.
 
 ``render_pass_compact`` bounces only the alive rays from depth 1 on. Every
 sample is keyed by (pixel, sample, dim) and a dead ray's state no longer
@@ -48,6 +52,7 @@ effective-ray counts, and ``li_path``, ``li_simple_path`` and
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any
 
 import numpy as np
@@ -89,7 +94,10 @@ class SamplerConfig:
     image width and log2 of its scale, are derived by RenderConfig). On
     CUDA pixel ids every draw but ``sobol_global``'s is one launch of the
     sampler kernel (``ops/rng_kernel.py``), bit for bit with ``ops/rng.py``
-    on the card."""
+    on the card. ``seed`` is an int or, for every kind but
+    ``sobol_global``, a 0-d int64 tensor on the pixels' device holding
+    ``rng_kernel.seed_word(seed)`` (the same draws; a captured pass reads
+    it on the device)."""
     kind: str = "independent"
     spp: int = 16
     xs: int = 4
@@ -751,22 +759,31 @@ def _device_allocs(device):
     return stats.get("num_device_alloc", 0), stats.get("num_device_free", 0)
 
 
-def accumulate(pass_fn, film, stop, chunk=1, progress=None, capture=False):
+def accumulate(pass_fn, film, stop, chunk=1, progress=None, capture=False,
+               kept=None):
     """Passes film.spp_done .. stop - 1 of ``pass_fn(sample_idx)`` -> (rgb,
     weight) summed ``chunk`` at a time (:func:`render_passes`' order) and
     each sum added to the film; ``progress(i, film)`` after each. With
     ``capture`` the first pass runs eagerly and every later one is a
     replay of one :class:`PassGraph` (the same bits), released before the
-    call returns.
+    call returns unless ``kept`` (a :class:`KeptPass`, with ``capture``)
+    keeps it: the call leaves the graph it captured in ``kept.graph``, and
+    where ``kept.graph`` is set already every pass, the first included, is
+    a replay of it from film.spp_done, with nothing eager and no capture.
 
     The call is the recorder's root span ``crt.frame``; its eager passes
     are ``crt.pass.eager`` spans and the graph's release
-    ``crt.pass.release``."""
+    ``crt.pass.release``. Its counters ``crt.graph.kept`` and
+    ``crt.graph.captured`` are 1 where it replayed a kept graph or
+    captured one."""
     h, w = film.weight_sum.shape
     resolution, device = (w, h), film.weight_sum.device
     i = int(film.spp_done)
-    graph = None
+    graph = None if kept is None else kept.graph
     with metrics.span("crt.frame", root=True):
+        if graph is not None and i < stop:
+            graph.idx.fill_(i)
+            metrics.count("crt.graph.kept", 1)
         while i < stop:
             n = min(chunk, stop - i)
             if graph is not None:
@@ -778,6 +795,7 @@ def accumulate(pass_fn, film, stop, chunk=1, progress=None, capture=False):
                                                   resolution, device)
                 if capture and i + 1 < stop:
                     graph = PassGraph(pass_fn, i + 1, resolution, device)
+                    metrics.count("crt.graph.captured", 1)
                     if n > first:
                         rgb_sum, wt_sum = graph.run(n - first, rgb_sum,
                                                     wt_sum)
@@ -786,10 +804,113 @@ def accumulate(pass_fn, film, stop, chunk=1, progress=None, capture=False):
             i += n
             if progress is not None:
                 progress(i - 1, film)
-        if graph is not None:
+        if kept is not None:
+            kept.graph = graph
+        elif graph is not None:
             with metrics.span("crt.pass.release"):
                 graph.graph.reset()
     return film
+
+
+def scene_leaves(obj):
+    """Every value ``obj`` (a scene) holds, depth first through dataclasses
+    (their type, then their attributes), tuples, lists and dicts: the
+    tensors and arrays themselves, and the other values."""
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
+        return [obj]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        obj = (type(obj),) + tuple(vars(obj).items())
+    elif isinstance(obj, dict):
+        obj = tuple(obj.items())
+    if isinstance(obj, (tuple, list)):
+        return [type(obj), len(obj)] + [x for v in obj
+                                        for x in scene_leaves(v)]
+    return [obj]
+
+
+def kept_key(scene, camera, cfg: RenderConfig, device):
+    """The key under which :func:`render` keeps its captured pass for
+    ``scene`` on ``device`` (the scene's), or None where it keeps none: off
+    the card, for a compacted render (eager, with host reads), and while a
+    profiler records (the call's fine spans and ``crt.bounce.*`` counters
+    come from its own eager pass and capture, as without a kept pass; the
+    kept one is left as it is). Decided from what the call can observe,
+    before a pass runs. Calls with equal keys replay one graph, which reads
+    the scene's tensors at the addresses it captured and the seed from the
+    device. The key holds:
+
+    - every tensor and array of the scene (:func:`scene_leaves`) by
+      identity, its other values by value: a rebound field captures anew;
+    - the camera by value;
+    - ``cfg`` with the sampler's seed at 0, but for ``sobol_global``, whose
+      draws take an int seed (``ops/rng.py``): its seed stays in the key;
+    - the device."""
+    device = torch.device(device)
+    if (device.type != "cuda" or (cfg.compact and cfg.integrator != "direct")
+            or metrics.recording()):
+        return None
+    if cfg.sampler.kind != "sobol_global":
+        cfg = dataclasses.replace(cfg, sampler=dataclasses.replace(
+            cfg.sampler, seed=0))
+    leaves = tuple(("id", id(x)) if isinstance(x, (torch.Tensor, np.ndarray))
+                   else x for x in scene_leaves(scene))
+    return leaves, camera, cfg, device
+
+
+class KeptPass:
+    """What :func:`render` keeps across calls: the captured
+    :class:`PassGraph` (``graph``), the device seed its draws read
+    (``seed``, 0-d int64; None for ``sobol_global``), the config, filter
+    and sensor it was captured with, and, once :meth:`hold` has run, its
+    ``key`` (:func:`kept_key`), every tensor its replays read outside the
+    graph's pool that nothing else keeps alive (``pins``) and the
+    ``finalizer`` that releases the graph when the scene, held weakly, is
+    collected (or at exit)."""
+
+    def __init__(self, device, cfg: RenderConfig):
+        self.graph = self.seed = self.key = self.pins = None
+        self.finalizer = None
+        if cfg.sampler.kind != "sobol_global":
+            self.seed = torch.zeros((), dtype=torch.int64, device=device)
+            cfg = dataclasses.replace(cfg, sampler=dataclasses.replace(
+                cfg.sampler, seed=self.seed))
+        self.cfg = cfg
+        self.filter, self.sensor = make_filter(cfg), make_sensor(cfg)
+
+    def hold(self, scene, camera, cfg: RenderConfig):
+        """Take the key and the pins of the scene as the capture left it
+        (with the tables its first pass built, such as the mesh's vertex
+        table): the scene's leaves, so that no rebound field's id is
+        reused while the key holds it, and the camera's frame, which sits
+        in a bounded cache."""
+        self.key = kept_key(scene, camera, cfg, scene.device)
+        self.pins = (scene_leaves(scene), camera.frame(scene.device))
+        self.finalizer = weakref.finalize(scene, _forget, self)
+
+
+# The one KeptPass render() holds: the last key's, or None.
+_KEPT = None
+# Graphs whose scene was collected while a capture ran, released at the
+# next render(): no graph is destroyed while a capture records.
+_RELEASE_LATER = []
+
+
+def _forget(kept):
+    """Drop ``kept`` if it is the kept pass, and release its graph."""
+    global _KEPT
+    if kept is not _KEPT:
+        return
+    _KEPT = None
+    kept.finalizer.detach()
+    if metrics.capturing():
+        _RELEASE_LATER.append(kept)
+    else:
+        _release(kept)
+
+
+def _release(kept):
+    with metrics.span("crt.pass.release"):
+        kept.graph.graph.reset()
 
 
 @torch.no_grad()
@@ -797,23 +918,53 @@ def render(scene, camera, cfg: RenderConfig, film=None, progress=None,
            passes=None, chunk=1):
     """Progressive render: cfg.sampler.spp passes accumulated into a Film.
     Resume from ``film`` (continues at ``film.spp_done``); ``passes`` stops
-    early; ``chunk`` passes are summed before each film update. On a CUDA
-    scene every pass after the first is a replay of one captured CUDA graph
+    early; ``chunk`` passes are summed before each film update.
+
+    On a CUDA scene the passes replay one captured CUDA graph
     (:class:`PassGraph`, the reference's one device program a chunk; the
-    same bits as the eager loop, :func:`accumulate` without capture). With
+    same bits as the eager loop, :func:`accumulate` without capture), kept
+    across calls in one :class:`KeptPass`. A call whose :func:`kept_key`
+    matches the kept one (the same scene tensors, camera, config but for
+    the seed, and device) writes its seed and start index into the graph's
+    device inputs and replays every pass; another runs the first pass
+    eagerly, captures a new graph for the later ones and keeps it in place
+    of the old, which is released (``crt.pass.release``), as it is when its
+    scene is collected. The sensor returned is the kept one. A call made
+    while a profiler records keeps nothing and replays nothing kept: it
+    captures its own graph and releases it before it returns. With
     ``cfg.compact`` (and a multi-bounce integrator) each pass goes through
     :func:`render_pass_compact`, one pass a film update, eagerly, as the
     reference's; the values are the full wavefront's."""
-    filter_obj = make_filter(cfg)
-    sensor = make_sensor(cfg)
+    global _KEPT
     if film is None:
         film = filmmod.Film.create(cfg.resolution, device=scene.device)
     stop = cfg.sampler.spp if passes is None else min(
         cfg.sampler.spp, int(film.spp_done) + passes)
-    compact = cfg.compact and cfg.integrator != "direct"
-    one_pass = render_pass_compact if compact else render_pass
+    key = kept_key(scene, camera, cfg, scene.device)
+    if key is None:
+        filter_obj, sensor = make_filter(cfg), make_sensor(cfg)
+        compact = cfg.compact and cfg.integrator != "direct"
+        one_pass = render_pass_compact if compact else render_pass
+        film = accumulate(
+            lambda i: one_pass(scene, camera, cfg, filter_obj, sensor, i),
+            film, stop, 1 if compact else chunk, progress,
+            not compact and scene.device.type == "cuda")
+        return film, sensor
+    while _RELEASE_LATER:
+        _release(_RELEASE_LATER.pop())
+    kept = _KEPT
+    if kept is not None and kept.key != key:
+        _forget(kept)
+        kept = None
+    if kept is None:
+        kept = KeptPass(scene.device, cfg)
+    if kept.seed is not None:
+        kept.seed.fill_(rng_kernel.seed_word(cfg.sampler.seed))
     film = accumulate(
-        lambda i: one_pass(scene, camera, cfg, filter_obj, sensor, i), film,
-        stop, 1 if compact else chunk, progress,
-        not compact and scene.device.type == "cuda")
-    return film, sensor
+        lambda i: render_pass(scene, camera, kept.cfg, kept.filter,
+                              kept.sensor, i),
+        film, stop, chunk, progress, capture=True, kept=kept)
+    if kept.graph is not None and kept.key is None:
+        kept.hold(scene, camera, cfg)
+        _KEPT = kept
+    return film, kept.sensor

@@ -65,11 +65,16 @@ class CameraBase:
         w, h = self.resolution
         return pixel_xy[..., 0] / w, pixel_xy[..., 1] / h
 
+    def frame(self, device):
+        """(camera-to-world rotation, position) on ``device``, the tensors
+        ``generate_rays`` reads there."""
+        return _frame(tuple(map(tuple, self.basis)), tuple(self.position),
+                      str(device))
+
     def generate_rays(self, pixel_xy, u_lens):
         """(..., 2) raster coords + (..., 2) lens uniforms -> world (o, d)."""
         o, d = self._rays_camera_space(pixel_xy, u_lens)
-        m, pos = _frame(tuple(map(tuple, self.basis)), tuple(self.position),
-                        str(d.device))
+        m, pos = self.frame(d.device)
         o = o @ m.T + pos
         d = d @ m.T
         return o, d / torch.linalg.norm(d, dim=-1, keepdim=True)

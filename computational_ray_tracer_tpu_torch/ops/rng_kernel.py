@@ -14,12 +14,13 @@ on one draw.
 - :func:`draw_1d` / :func:`draw_2d` are the wrappers
   ``integrator.SamplerConfig`` calls: for CPU tensors they run the plain
   version; for CUDA tensors they launch the kernel once a draw (or raise),
-  bit for bit with the plain version on the card. The sample index is a
-  Python int or a 0-d int64 tensor on the pixels' device, which the kernel
-  reads on the device, so a captured pass reads the index each replay
-  steps. Nothing is read back to the host, and the output is allocated
-  with ``torch.empty``, so a draw can be captured in a CUDA graph.
-  ``LAUNCHES`` counts the launches.
+  bit for bit with the plain version on the card. The sample index and
+  the seed are each a Python int or a 0-d int64 tensor on the pixels'
+  device, which the kernel reads on the device, so a captured pass reads
+  the index each replay steps and the seed the host wrote before the
+  replays (:func:`seed_word`). Nothing is read back to the host, and the
+  output is allocated with ``torch.empty``, so a draw can be captured in a
+  CUDA graph. ``LAUNCHES`` counts the launches.
 
 The ``sobol_global`` kind stays on ``ops/rng.py``: its index solve is
 another computation, and no path that is timed runs it.
@@ -68,7 +69,7 @@ class SamplerParams(ctypes.Structure):
     """``CrtSamplerParams`` of ``csrc/sampler.cu``: a draw's uniform
     parameters, passed to the kernel by value."""
     _fields_ = [(name, ctypes.c_uint32) for name in (
-        "seed", "seed_hash", "dim0", "dim1", "n", "w", "walk", "xs",
+        "seed", "dim0", "dim1", "n", "w", "walk", "xs",
         "jitter")] + [("scale0", ctypes.c_float), ("scale1", ctypes.c_float),
                       ("sobol", ctypes.c_uint32 * 64)]
 
@@ -92,7 +93,7 @@ def draw_params(kind, seed, dim, spp, xs, ys, jitter, two_d):
         w |= w >> s
     d0, d1 = dim & rng.MASK, (dim + 1) & rng.MASK
     p = SamplerParams(
-        seed=seed & rng.MASK, seed_hash=rng.hash_u32(seed), dim0=d0, dim1=d1,
+        seed=seed & rng.MASK, dim0=d0, dim1=d1,
         n=n, w=w, walk=w + 1 - n if n & (n - 1) else 0, xs=xs,
         jitter=int(bool(jitter)))
     if kind == "stratified":
@@ -103,6 +104,13 @@ def draw_params(kind, seed, dim, spp, xs, ys, jitter, two_d):
                                    d1 % rng.N_SOBOL_DIMS]]
         p.sobol[:] = [int(v) for v in cols.reshape(-1)]
     return p
+
+
+def seed_word(seed):
+    """What the host writes into a device seed for the int ``seed``: its
+    low 32 bits, draw_params' ``seed``, the one word of it any draw reads
+    (the kernel takes ``hash_u32`` of it on the card, as of a host seed)."""
+    return int(seed) & rng.MASK
 
 
 def _launch(kind, seed, pixel, sample_idx, dim, spp, xs, ys, jitter, two_d):
@@ -123,6 +131,11 @@ def _launch(kind, seed, pixel, sample_idx, dim, spp, xs, ys, jitter, two_d):
         sample_ptr, sample_host = sample_idx.data_ptr(), 0
     else:
         sample_ptr, sample_host = None, int(sample_idx) & rng.MASK
+    if isinstance(seed, torch.Tensor):
+        check_tensor("seed", seed, (), torch.int64, dev)
+        seed_ptr, seed = seed.data_ptr(), 0
+    else:
+        seed_ptr = None
     params = draw_params(kind, int(seed), int(dim), int(spp), int(xs),
                          int(ys), bool(jitter), two_d)
     out = torch.empty(tuple(pixel.shape) + ((2,) if two_d else ()),
@@ -131,7 +144,7 @@ def _launch(kind, seed, pixel, sample_idx, dim, spp, xs, ys, jitter, two_d):
         return out
     err = build.load_library().crt_sampler_draw(
         KINDS.index(kind), int(two_d), pixel.data_ptr(), n, sample_ptr,
-        sample_host, ctypes.addressof(params), out.data_ptr(),
+        sample_host, seed_ptr, ctypes.addressof(params), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sampler kernel launch failed: CUDA error {err} "
@@ -151,7 +164,8 @@ def _route(pixel, name):
 
 def draw_1d(kind, seed, pixel, sample_idx, dim, spp, jitter=True):
     """The 1D draw of ``kind`` for the pixel ids ``pixel`` (int64) at
-    ``sample_idx`` in dimension ``dim``: float32 of the pixels' shape. CPU
+    ``sample_idx`` in dimension ``dim`` under ``seed`` (an int or a 0-d
+    int64 tensor on the pixels' device): float32 of the pixels' shape. CPU
     tensors run :func:`plain_1d`; CUDA tensors launch the kernel, and an
     input it does not take raises."""
     if _route(pixel, "draw_1d") == "plain":

@@ -13,9 +13,10 @@ plain version on CUDA tensors, bit for bit, for every kind, 1D and 2D, spp
 in {1, 7, 32, 100, 128} (jitter on and off), dims {0, 1, 5, 37, 38, 71,
 72, 141}, sample indices past spp, pixel ids in raster order, a gathered
 subset and random values up to 2^32 - 1, a Python-int and a 0-d device
-index; a captured graph that steps the index; one Cornell pass and one
-canonical pass whose films equal the plain sampler's, with 20 and 3
-launches."""
+index; a 0-d device seed against the int seed, also in a captured
+graph whose seed the host rewrites; a captured graph that steps the
+index; one Cornell pass and one canonical pass whose films equal the
+plain sampler's, with 20 and 3 launches."""
 
 import dataclasses
 import os
@@ -182,12 +183,13 @@ def test_early_stopping_walk_is_masked_walk(n):
 
 def test_draw_params():
     """What the host hands the kernel: the permutation's mask and walk,
-    the float32 reciprocals, the hashed seed and the direction numbers of
-    dim % 72 and (dim + 1) % 72 with the dims kept unwrapped."""
+    the float32 reciprocals, the seed's low word (the kernel hashes it) and
+    the direction numbers of dim % 72 and (dim + 1) % 72 with the dims kept
+    unwrapped."""
     p = rk.draw_params("stratified", SEED, 141, 100, 10, 10, True, True)
     assert (p.n, p.w, p.walk, p.xs) == (100, 127, 28, 10)
     assert p.scale0 == p.scale1 == float(np.float32(1) / np.float32(10))
-    assert p.seed_hash == rng.hash_u32(SEED)
+    assert p.seed == SEED & rng.MASK
     p = rk.draw_params("stratified", SEED, 3, 100, 1, 1, False, False)
     assert (p.n, p.walk, p.jitter) == (100, 28, 0)
     assert p.scale0 == float(np.float32(1) / np.float32(100))
@@ -296,6 +298,34 @@ def test_captured_draws_step_the_index(kind):
         for got, want in zip(out, draws(s)):
             assert torch.equal(got, want), s
     assert int(idx) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,two_d", CASES)
+def test_device_seed_matches_int_seed_on_cuda(kind, two_d):
+    """A seed read from the device (seed_word(seed) in a 0-d int64 tensor)
+    gives the by-value launch's bits for seeds 0, 1, 2^31 - 1, 2^32 + 5, a
+    negative one and SEED, on an int and a device index; and draws captured
+    in a CUDA graph read the seed the host writes between replays."""
+    dev = _card()
+    pixel = _pixel_sets(dev)["random"]
+    seed_dev = torch.zeros((), dtype=torch.int64, device=dev)
+    draw = lambda seed, s: (
+        rk.draw_2d(kind, seed, pixel, s, 37, 100, 10, 10) if two_d
+        else rk.draw_1d(kind, seed, pixel, s, 37, 100))
+    seeds = (0, 1, (1 << 31) - 1, (1 << 32) + 5, -12345, SEED)
+    for seed in seeds:
+        seed_dev.fill_(rk.seed_word(seed))
+        for s in (3, torch.tensor(3, dtype=torch.int64, device=dev)):
+            assert torch.equal(draw(seed_dev, s), draw(seed, s)), seed
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = draw(seed_dev, 3)
+    for seed in seeds:
+        seed_dev.fill_(rk.seed_word(seed))
+        graph.replay()
+        assert torch.equal(out, draw(seed, 3)), seed
 
 
 def _plain_pass(monkeypatch, fn):

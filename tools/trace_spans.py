@@ -11,8 +11,15 @@ the cell's per-layer metrics and, beside them, every reader of
 cell. Prints the result line, then a line ``spans:`` with what the
 readers' numbers are checked against: the profiled frame's ``crt.pass``
 device ms (its last replayed pass), the sampler and intersection device
-ms beside it, eager pass plus capture against ``first_pass_ms.frames``,
-and the profiled frame's or job's host ms against the window's median.
+ms beside it, what ``first_pass_ms.frames`` holds (eager pass plus
+capture, or on a window whose every frame replayed a kept graph one
+replay, ``replay_ms``), the window's frames that replayed a kept graph
+and that captured one (the ``crt.graph.kept`` / ``crt.graph.captured``
+counters) and the share that replayed, and the profiled frame's or job's
+host ms against the window's median. A frame rendered while the
+profiler records takes no kept graph: it runs its own eager pass and
+capture, which give its fine spans and counters, so the profiled frame is
+one that captures whatever the window's frames did.
 Writes every span the recorder holds to ``DIR/<cell>.<seed>.spans.jsonl``
 (host seconds, as ``metrics.spans()`` gives them; by default under the
 package's git-ignored build directory).
@@ -77,9 +84,10 @@ def run_cell(workload, seed, seconds, out_dir):
     spans = metrics.spans()
     root = "crt.job" if cell["kind"] == "inverse_job" else "crt.frame"
     t_end = seen["rec"]["t_end"]
-    window_ms = [(s["end"] - s["start"]) * 1e3 for s in spans
-                 if s["name"] == root and s["end"] is not None
+    in_window = [s for s in spans if s["name"] == root
+                 and s["end"] is not None
                  and seen["rec"]["t_start"] <= s["start"] <= t_end]
+    window_ms = [(s["end"] - s["start"]) * 1e3 for s in in_window]
     after = [s for s in spans if s["name"] == root and s["start"] > t_end]
     line = {"cell": workload, "seed": seed,
             "window_root_ms_median": (statistics.median(window_ms)
@@ -89,14 +97,25 @@ def run_cell(workload, seed, seconds, out_dir):
     if root == "crt.frame":
         got = out["metrics"]
         value = lambda name: got.get(name, {}).get("value")
+        graphs = {name: sum(metrics.counters(s["request"]).get(
+            f"crt.graph.{name}", 0) for s in in_window)
+            for name in ("kept", "captured")}
+        routes = graphs["kept"] + graphs["captured"]
+        first = ("eager pass + capture", None)
+        if in_window and graphs["kept"] == len(in_window):
+            first = ("one replay", value("replay_ms"))
+        elif value("capture_ms.frames") is not None:
+            first = (first[0], value("eager_pass_ms.frames")
+                     + value("capture_ms.frames"))
         line.update(
             pass_device_ms=span_readers.device_ms(ctx, "crt.pass"),
             sampler_ms=value("sampler_ms.frames"),
             intersect_ms=value("intersect_ms.frames"),
             replay_ms=value("replay_ms"),
-            eager_plus_capture_ms=(
-                value("eager_pass_ms.frames") + value("capture_ms.frames")
-                if value("capture_ms.frames") is not None else None),
+            window_frames=len(in_window),
+            graph_kept=graphs["kept"], graph_captured=graphs["captured"],
+            hit_share=graphs["kept"] / routes if routes else None,
+            first_pass_is=first[0], first_pass_expected_ms=first[1],
             first_pass_ms=value("first_pass_ms.frames"))
     print("spans: " + json.dumps(line))
     os.makedirs(out_dir, exist_ok=True)
