@@ -5,7 +5,7 @@
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the CUDA
 toolkit; imports nothing of JAX. Every render() and canonical_render() on
 the card below runs its first pass eagerly and replays one captured CUDA
-graph for the others (integrator.PassGraph; phase 23 holds it to the eager
+graph for the others (integrator.pass_graph; phase 23 holds it to the eager
 loop), so phases 4, 7, 10-12 and 17a time the captured render. Phases, each
 printed on its own line; any failed check raises, so the script exits
 non-zero:
@@ -105,7 +105,7 @@ non-zero:
    finite, the emission gradient nonzero, each leaf within GRAD_REL of
    max|g|; (b) TRAIN_STEPS Adam steps from the start scene through
    inverse.optimize (on the card step 0 eagerly, then replays of one
-   captured step, inverse.StepGraph; phase 24 holds it to the eager
+   captured step, a graphs.CapturedGraph; phase 24 holds it to the eager
    loop), with every launch count at 0 just before and read just after
    (the training path's run): s/step, the loss at step 0 and after the
    last step (it must fall), launches per step, the first CPU_LOSSES
@@ -126,7 +126,7 @@ non-zero:
 16. the sharded paths at full width (parallel/sharding.py): (a) the
    Cornell headline (512x512, spp 32, path/MIS depth 4, brute kernel) at
    world size 1 over NCCL: one sharded render step captured alone
-   (sharding.RenderStepGraph: its capture seconds, spp - 1 replays
+   (integrator.capture_sums: its capture seconds, spp - 1 replays
    timed), then render_distributed (the first step eager, every later
    one a replay of one captured step) and its eager steps
    (make_sharded_render) in the turns SHARD_TURNS, every count at 0
@@ -144,9 +144,9 @@ non-zero:
    SHARD_GRAPH_STEPS steps at samples 0, 1, ... with make_train_step's
    default optimizer (inverse.DeviceAdam, lr 2e-2) through its step
    (warm-up on a side stream, capture, replays of one
-   sharding.TrainStepGraph) and through its eager route in the turns
+   sharding.train_graph) and through its eager route in the turns
    SHARD_TURNS (losses and final parameters bitwise, launches equal, the
-   loss trending down; a TrainStepGraph captured alone for its seconds),
+   loss trending down; a train_graph captured alone for its seconds),
    and at world size 2 ((2, 1), (1, 2); gloo, eager) 5 steps with the
    default optimizer on fixed samples (the loss must fall); each step's
    route, s/step, every rank's launches (the interp backward included);
@@ -224,7 +224,7 @@ non-zero:
    headline (chunk 32, as phase 4), the mesh headline, the flagship, the
    canonical frame (500x500, spp 100: the stratified walk) and the
    sobol_global headline (17a), render() / canonical_render(), which
-   replay one captured CUDA graph (integrator.PassGraph) for every pass
+   replay one captured CUDA graph (integrator.pass_graph) for every pass
    after the first, against the eager loop of render_pass /
    canonical_pass over the same Python indices (integrator.accumulate
    without capture): the films bitwise equal and every kernel's launch
@@ -240,7 +240,7 @@ non-zero:
    against as many calls of render()'s route before it kept a pass
    (accumulate with capture and no KeptPass: the graph released in the
    call), in turns (capture, render, render, capture), each side's median
-   s/call (miss_s_per_call); then one PassGraph captured
+   s/call (miss_s_per_call); then one pass_graph captured
    alone (its seconds, the memory its pool reserved, its launches a
    replay) and GRAPH_TURN_PASSES eager passes against as many replays,
    timed in turns (eager, graph, graph, eager, twice), each side's median
@@ -252,7 +252,7 @@ non-zero:
    the card's form (inverse.make_step with DeviceAdam) with every kernel
    launch recorded, then each held to its plain version (the brute-force
    kernel's two modes and the interpolation kernel bitwise, the backward
-   within BWD_REL of the sum of |terms|); one StepGraph captured alone
+   within BWD_REL of the sum of |terms|); one step graph captured alone
    (its seconds, the memory its pool reserved, its launches a replay);
    then TRAIN_STEPS steps through inverse.optimize (step 0 eagerly, step
    1 captured, every later step a replay) and through the eager loop with
@@ -300,6 +300,7 @@ from computational_ray_tracer_tpu_torch.apps import filter_film_test
 from computational_ray_tracer_tpu_torch.apps import raytracer as rt_app
 from computational_ray_tracer_tpu_torch.apps import shape_test as st_app
 from computational_ray_tracer_tpu_torch.kernels import build
+from computational_ray_tracer_tpu_torch.models import graphs
 from computational_ray_tracer_tpu_torch.models import integrator as integ
 from computational_ray_tracer_tpu_torch.models import inverse as inv
 from computational_ray_tracer_tpu_torch.models import lights as lgt
@@ -1194,10 +1195,10 @@ def compact_vs_full(phase, scene, camera, cfg, sample_idx):
 
 def zero_counts():
     """Every kernel's launch count to 0."""
-    integ.add_launch_counts({k: -n for k, n in read_counts().items()})
+    graphs.add_launch_counts({k: -n for k, n in read_counts().items()})
 
 
-read_counts = integ.launch_counts
+read_counts = graphs.launch_counts
 
 
 def timed_render(phase, scene, camera, cfg, rays_per_sample, card, film=None,
@@ -1471,7 +1472,7 @@ def graph_case(name, setup, dev, card, chunk=1, canonical=False):
         torch.cuda.empty_cache()
         reserved0 = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
-        pg = integ.PassGraph(pass_fn, 0, res, dev)
+        pg = integ.pass_graph(pass_fn, 0, res, dev)
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
         pool_mb = (torch.cuda.memory_reserved(dev) - reserved0) / 1e6
@@ -1483,8 +1484,8 @@ def graph_case(name, setup, dev, card, chunk=1, canonical=False):
                 integ.accumulate(pass_fn, filmmod.Film.create(res, dev), n,
                                  chunk=n)
             else:
-                pg.idx.fill_(0)
-                pg.run(n)
+                pg.set_index(0)
+                integ.replay_sums(pg, n)
             torch.cuda.synchronize()
             turns[side].append((time.perf_counter() - t0) / n)
         draws = draws_ms(cfg, dev) if canonical else None
@@ -1671,17 +1672,17 @@ def train_graph_phase(dev, card, steps=TRAIN_STEPS):
     held = step_launch_checks(dev)
     start, camera, cfg, lr, target_img, ei = config5_start(dev)
 
-    # a StepGraph alone: its capture seconds and the memory its pool holds
+    # a step graph alone: its capture seconds and the memory its pool holds
     params = inv.leaf_params(ei[0](start))
     opt = inv.DeviceAdam(list(params.values()), lr)
     step = inv.make_step(camera, cfg, ei, target_img, params, start, opt)
-    inv.on_side_stream(step)
+    graphs.on_side_stream(step)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reserved0 = torch.cuda.memory_reserved(dev)
     opt.zero_grad()
     t0 = time.perf_counter()
-    graph = inv.StepGraph(step)
+    graph = graphs.CapturedGraph(step)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
     pool_mb = (torch.cuda.memory_reserved(dev) - reserved0) / 1e6
@@ -1928,7 +1929,7 @@ def eager_sharded_render(scene, camera, cfg, mesh):
 
 
 def sharded_render_turns(scene, camera, cfg, mesh, dev):
-    """16a's routes on ``mesh``: one RenderStepGraph captured alone after
+    """16a's routes on ``mesh``: one step graph captured alone after
     an eager step (its capture seconds, its launches a replay, spp - 1
     replays timed), then render_distributed (captured where
     par.captures(mesh)) and its eager steps in the turns SHARD_TURNS,
@@ -1943,11 +1944,12 @@ def sharded_render_turns(scene, camera, cfg, mesh, dev):
         sums(scene, 0)
         sync(dev)
         t0 = time.perf_counter()
-        graph = par.RenderStepGraph(lambda idx: sums(scene, idx), 1, 1,
-                                    cfg.resolution, dev)
+        graph = integ.capture_sums(lambda idx: sums(scene, idx), 1, 1,
+                                   cfg.resolution, dev, kept=True)
         sync(dev)
         capture_s = time.perf_counter() - t0
-        _, replay_s, _ = counted_run(lambda: graph.run(spp - 1), dev)
+        _, replay_s, _ = counted_run(
+            lambda: integ.replay_sums(graph, spp - 1), dev)
         per_replay = graph.launches
         del graph
     runs = {"graph": lambda: par.render_distributed(scene, camera, cfg,
@@ -2039,7 +2041,7 @@ def config5_sharded(dev, scale, mesh, target_img, steps=SHARD_STEPS):
 
 def sharded_step_turns(dev, scale, mesh, target_img, steps=SHARD_GRAPH_STEPS):
     """16c at world size 1: the averaged gradient (sharded_grads), one
-    TrainStepGraph captured alone after an eager step on a side stream
+    train_graph captured alone after an eager step on a side stream
     (its capture seconds), then ``steps`` steps at samples 0 ..
     ``steps`` - 1 with the default optimizer (DeviceAdam, lr 2e-2) through
     train_step (captured where par.captures(mesh): warm-up, capture,
@@ -2059,12 +2061,11 @@ def sharded_step_turns(dev, scale, mesh, target_img, steps=SHARD_GRAPH_STEPS):
         step, init, _ = par.make_train_step(start, camera, cfg, mesh, ei)
         params = inv.leaf_params(ei[0](start))
         opt = init(params)
-        inv.on_side_stream(lambda: step.eager(params, opt, start, target_img,
-                                              0))
+        graphs.on_side_stream(lambda: step.eager(params, opt, start,
+                                                 target_img, 0))
         sync(dev)
         t0 = time.perf_counter()
-        graph = par.TrainStepGraph(step.eager, params, opt, start,
-                                   target_img, 0)
+        graph = par.train_graph(step.eager, params, opt, start, target_img)
         sync(dev)
         capture_s = time.perf_counter() - t0
         per_replay = graph.launches

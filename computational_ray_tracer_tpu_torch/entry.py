@@ -350,8 +350,8 @@ def canonical_render(res=500, spp=100, cap=40, scene=None, device="cuda"):
     accumulated into a film and resolved with the default resolve (sRGB
     encode, clip). ``scene`` reuses a built ``canonical_scene``. On a CUDA
     scene every pass after the first is a replay of one captured CUDA graph
-    (``integ.PassGraph``; the same bits as the eager loop). Returns (image
-    (H, W, 3), film)."""
+    (``integrator.pass_graph``; the same bits as the eager loop). Returns
+    (image (H, W, 3), film)."""
     if scene is None:
         scene = canonical_scene(cap, device=device)
     camera, cfg = canonical_view(res, spp)

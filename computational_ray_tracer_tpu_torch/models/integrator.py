@@ -28,7 +28,7 @@ spectral cache's interpolation kernel has a backward kernel.
 A pass takes its sample index as a Python int or as a 0-d int64 tensor
 on the scene's device; on a tensor it reads nothing back to the host and
 makes no host copy, so ``render()`` on a CUDA scene captures one pass in
-a CUDA graph (:class:`PassGraph`, the reference's jitted ``chunk_pass``)
+a CUDA graph (:func:`pass_graph`, the reference's jitted ``chunk_pass``)
 and replays it for every pass after the first, stepping the index on the
 device; the films are the eager loop's bit for bit. The sampler's seed is
 a device input of that graph too, so ``render()`` keeps it across calls
@@ -64,11 +64,9 @@ from computational_ray_tracer_tpu_torch.ops import spectrum as spec
 from computational_ray_tracer_tpu_torch.ops import filters as flt
 from computational_ray_tracer_tpu_torch.ops import sensor as sen
 from computational_ray_tracer_tpu_torch.ops import film as filmmod
-from computational_ray_tracer_tpu_torch.ops import interp_kernel as ik
-from computational_ray_tracer_tpu_torch.ops import mesh_intersect_kernel as mik
-from computational_ray_tracer_tpu_torch.ops import octree_kernel as okern
 from computational_ray_tracer_tpu_torch.ops import spectra_data as data
 from computational_ray_tracer_tpu_torch.ops.montecarlo import power_heuristic
+from computational_ray_tracer_tpu_torch.models import graphs
 from computational_ray_tracer_tpu_torch.models import materials as mat
 from computational_ray_tracer_tpu_torch.models import lights as lgt
 from computational_ray_tracer_tpu_torch.models.scene import (
@@ -617,146 +615,59 @@ def render_passes(scene, camera, cfg: RenderConfig, filter_obj, sensor,
                        cfg.resolution, scene.device)
 
 
-# The kernel wrappers' launch counters: name -> (module, attribute).
-LAUNCH_COUNTERS = {
-    "brute_closest": (mik, "LAUNCHES"),
-    "brute_anyhit": (mik, "LAUNCHES_ANYHIT"),
-    "octree_closest": (okern, "LAUNCHES_CLOSEST"),
-    "octree_anyhit": (okern, "LAUNCHES_ANYHIT"),
-    "interp": (ik, "LAUNCHES"),
-    "interp_backward": (ik, "LAUNCHES_BACKWARD"),
-    "sampler": (rng_kernel, "LAUNCHES"),
-}
+def capture_sums(step_sums, step, sample_idx, resolution, device,
+                 kept=False):
+    """A :class:`graphs.CapturedGraph` (into the card's ``graphs.kept_pool``
+    if ``kept``, else a pool of its own) each replay of which adds
+    ``step_sums(idx)`` -> (rgb * weight, weight) into its static film sums
+    ``state`` and steps its device index ``idx`` (first ``sample_idx``) by
+    ``step`` (:func:`replay_sums`). The capture is the recorder's
+    ``crt.pass.capture`` span, with the device allocations and frees it
+    made (``device_allocs``, ``device_frees``); the step, a fine
+    ``crt.pass``."""
+    w, h = resolution
+    idx = torch.full((), int(sample_idx), dtype=torch.int64, device=device)
+    sums = (torch.zeros((h, w, 3), device=device),
+            torch.zeros((h, w), device=device))
 
-
-def launch_counts():
-    """Every kernel wrapper's launch count, by LAUNCH_COUNTERS name."""
-    return {key: getattr(mod, attr)
-            for key, (mod, attr) in LAUNCH_COUNTERS.items()}
-
-
-def add_launch_counts(counts):
-    """Add ``counts`` (a launch_counts dict) to the wrappers' counters."""
-    for key, n in counts.items():
-        mod, attr = LAUNCH_COUNTERS[key]
-        setattr(mod, attr, getattr(mod, attr) + n)
-
-
-def capture_counted(graph, fn, pool=None):
-    """``fn()`` captured into the CUDA graph ``graph``; returns (its output,
-    the launches it counted). The kernel wrappers count a launch where
-    they launch it and a capture only records, so what it counted is taken
-    back here and a replay adds it again. A capture that fails raises.
-
-    Without ``pool`` the capture is ``torch.cuda.graph``'s, which empties
-    the allocator's cache and gives the graph a pool of its own. With
-    ``pool`` (a ``torch.cuda.graph_pool_handle`` that another graph holds)
-    the graph allocates from that pool and the cache is left as it is:
-    captures into one pool that outlives their graphs reuse its blocks,
-    with no device allocation or free after the first."""
-    before = launch_counts()
-    try:
-        if pool is None:
-            with torch.cuda.graph(graph):
-                out = fn()
-        else:
-            out = _capture_into(graph, fn, pool)
-    finally:
-        launches = {key: n - before[key]
-                    for key, n in launch_counts().items()}
-        add_launch_counts({key: -n for key, n in launches.items()})
-    return out, launches
-
-
-# The side stream of each card that every capture into a kept pool runs on
-# (see _capture_into).
-_CAPTURE_STREAMS = {}
-
-
-def _capture_into(graph, fn, pool):
-    """``torch.cuda.graph``'s capture (the card synchronised, a side
-    stream) into ``pool``, without emptying the allocator's cache. The
-    side stream is one a card, kept: the allocator reuses a pool's free
-    blocks only on the stream that allocated them, and a new stream a
-    capture (``torch.cuda.Stream()`` cycles through 32) would take new
-    ones for each of them."""
-    torch.cuda.synchronize()
-    index = torch.cuda.current_device()
-    if index not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[index] = torch.cuda.Stream()
-    with torch.cuda.stream(_CAPTURE_STREAMS[index]):
-        graph.capture_begin(pool=pool)
-        try:
-            return fn()
-        finally:
-            graph.capture_end()
-
-
-class PassGraph:
-    """One sample pass captured as a CUDA graph, the port of the
-    reference's jitted ``chunk_pass``. Each replay runs ``pass_fn(idx)`` on
-    the device index ``idx`` (0-d int64, first ``sample_idx``), adds
-    rgb * weight and weight into the static sums ``rgb_sum`` /
-    ``weight_sum`` in the order of :func:`render_passes`, and steps ``idx``
-    by one. ``pass_fn`` must have run once eagerly before (kernel builds,
-    library handles). Each replay adds the capture's launches to the
-    counters (:func:`capture_counted`). A capture that fails raises.
-
-    The capture is the recorder's ``crt.pass.capture`` span, with the
-    device allocations and frees it made (``device_allocs``,
-    ``device_frees``); the captured pass is a fine ``crt.pass`` span."""
-
-    def __init__(self, pass_fn, sample_idx, resolution, device):
-        w, h = resolution
-        self.idx = torch.full((), int(sample_idx), dtype=torch.int64,
-                              device=device)
-        self.rgb_sum = torch.zeros((h, w, 3), device=device)
-        self.weight_sum = torch.zeros((h, w), device=device)
-        self.graph = torch.cuda.CUDAGraph()
-        with metrics.span("crt.pass.capture") as span:
-            before = _device_allocs(self.idx.device)
-            _, self.launches = self._capture(
-                lambda: self._traced_pass(pass_fn))
-            after = _device_allocs(self.idx.device)
-            span.attrs.update(device_allocs=after[0] - before[0],
-                              device_frees=after[1] - before[1])
-
-    def _capture(self, fn):
-        """``fn`` captured into the graph (:func:`capture_counted`)."""
-        return capture_counted(self.graph, fn)
-
-    def _traced_pass(self, pass_fn):
+    def traced():
         with metrics.fine_span("crt.pass"):
-            self.one_pass(pass_fn)
+            rgb, wt = step_sums(idx)
+            sums[0].add_(rgb)
+            sums[1].add_(wt)
+            idx.add_(step)
 
-    def one_pass(self, pass_fn):
-        """What a replay runs: the pass at ``idx`` added into the sums,
-        then ``idx`` stepped."""
-        rgb, wt = pass_fn(self.idx)
-        self.rgb_sum.add_(rgb * wt[..., None])
-        self.weight_sum.add_(wt)
-        self.idx.add_(1)
+    with metrics.span("crt.pass.capture") as span:
+        before = graphs.device_allocs(idx.device)
+        pool = graphs.kept_pool(idx.device) if kept else None
+        graph = graphs.CapturedGraph(traced, idx, sums, pool)
+        after = graphs.device_allocs(idx.device)
+        span.attrs.update(device_allocs=after[0] - before[0],
+                          device_frees=after[1] - before[1])
+    return graph
 
-    def run(self, n_passes, rgb_sum=None, weight_sum=None):
-        """Replay ``n_passes`` passes onto (rgb_sum, weight_sum) (None:
-        zeros); returns the static sums, which the next run overwrites."""
-        if rgb_sum is None:
-            self.rgb_sum.zero_()
-            self.weight_sum.zero_()
+
+def pass_graph(pass_fn, sample_idx, resolution, device):
+    """One sample pass captured (:func:`capture_sums`), the port of the
+    reference's jitted ``chunk_pass``: a replay adds rgb * weight and
+    weight of ``pass_fn(idx)`` in the order of :func:`render_passes`."""
+    def weighted(idx):
+        rgb, wt = pass_fn(idx)
+        return rgb * wt[..., None], wt
+    return capture_sums(weighted, 1, sample_idx, resolution, device)
+
+
+def replay_sums(graph, n, rgb_sum=None, weight_sum=None):
+    """Replay :func:`capture_sums`'s ``graph`` ``n`` times onto (rgb_sum,
+    weight_sum) (None: zeros); returns its static sums, which the next
+    replay overwrites."""
+    for static, start in zip(graph.state, (rgb_sum, weight_sum)):
+        if start is None:
+            static.zero_()
         else:
-            self.rgb_sum.copy_(rgb_sum)
-            self.weight_sum.copy_(weight_sum)
-        for _ in range(n_passes):
-            self.graph.replay()
-            add_launch_counts(self.launches)
-        return self.rgb_sum, self.weight_sum
-
-
-def _device_allocs(device):
-    """(device allocations, device frees) the caching allocator has made on
-    ``device`` (with its index) so far."""
-    stats = torch.cuda.memory.memory_stats_as_nested_dict(device)
-    return stats.get("num_device_alloc", 0), stats.get("num_device_free", 0)
+            static.copy_(start)
+    graph.replay(n)
+    return graph.state
 
 
 def accumulate(pass_fn, film, stop, chunk=1, progress=None, capture=False,
@@ -765,7 +676,7 @@ def accumulate(pass_fn, film, stop, chunk=1, progress=None, capture=False,
     weight) summed ``chunk`` at a time (:func:`render_passes`' order) and
     each sum added to the film; ``progress(i, film)`` after each. With
     ``capture`` the first pass runs eagerly and every later one is a
-    replay of one :class:`PassGraph` (the same bits), released before the
+    replay of one :func:`pass_graph` (the same bits), released before the
     call returns unless ``kept`` (a :class:`KeptPass`, with ``capture``)
     keeps it: the call leaves the graph it captured in ``kept.graph``, and
     where ``kept.graph`` is set already every pass, the first included, is
@@ -782,23 +693,23 @@ def accumulate(pass_fn, film, stop, chunk=1, progress=None, capture=False,
     graph = None if kept is None else kept.graph
     with metrics.span("crt.frame", root=True):
         if graph is not None and i < stop:
-            graph.idx.fill_(i)
+            graph.set_index(i)
             metrics.count("crt.graph.kept", 1)
         while i < stop:
             n = min(chunk, stop - i)
             if graph is not None:
-                rgb_sum, wt_sum = graph.run(n)
+                rgb_sum, wt_sum = replay_sums(graph, n)
             else:
                 first = 1 if capture else n
                 with metrics.span("crt.pass.eager"):
                     rgb_sum, wt_sum = _sum_passes(pass_fn, i, first,
                                                   resolution, device)
                 if capture and i + 1 < stop:
-                    graph = PassGraph(pass_fn, i + 1, resolution, device)
+                    graph = pass_graph(pass_fn, i + 1, resolution, device)
                     metrics.count("crt.graph.captured", 1)
                     if n > first:
-                        rgb_sum, wt_sum = graph.run(n - first, rgb_sum,
-                                                    wt_sum)
+                        rgb_sum, wt_sum = replay_sums(graph, n - first,
+                                                      rgb_sum, wt_sum)
             film = filmmod.Film(film.rgb_sum + rgb_sum,
                                 film.weight_sum + wt_sum, film.spp_done + n)
             i += n
@@ -807,8 +718,7 @@ def accumulate(pass_fn, film, stop, chunk=1, progress=None, capture=False,
         if kept is not None:
             kept.graph = graph
         elif graph is not None:
-            with metrics.span("crt.pass.release"):
-                graph.graph.reset()
+            graph.release()
     return film
 
 
@@ -859,7 +769,7 @@ def kept_key(scene, camera, cfg: RenderConfig, device):
 
 class KeptPass:
     """What :func:`render` keeps across calls: the captured
-    :class:`PassGraph` (``graph``), the device seed its draws read
+    :func:`pass_graph` (``graph``), the device seed its draws read
     (``seed``, 0-d int64; None for ``sobol_global``), the config, filter
     and sensor it was captured with, and, once :meth:`hold` has run, its
     ``key`` (:func:`kept_key`), every tensor its replays read outside the
@@ -905,12 +815,7 @@ def _forget(kept):
     if metrics.capturing():
         _RELEASE_LATER.append(kept)
     else:
-        _release(kept)
-
-
-def _release(kept):
-    with metrics.span("crt.pass.release"):
-        kept.graph.graph.reset()
+        kept.graph.release()
 
 
 @torch.no_grad()
@@ -921,7 +826,7 @@ def render(scene, camera, cfg: RenderConfig, film=None, progress=None,
     early; ``chunk`` passes are summed before each film update.
 
     On a CUDA scene the passes replay one captured CUDA graph
-    (:class:`PassGraph`, the reference's one device program a chunk; the
+    (:func:`pass_graph`, the reference's one device program a chunk; the
     same bits as the eager loop, :func:`accumulate` without capture), kept
     across calls in one :class:`KeptPass`. A call whose :func:`kept_key`
     matches the kept one (the same scene tensors, camera, config but for
@@ -951,7 +856,7 @@ def render(scene, camera, cfg: RenderConfig, film=None, progress=None,
             not compact and scene.device.type == "cuda")
         return film, sensor
     while _RELEASE_LATER:
-        _release(_RELEASE_LATER.pop())
+        _RELEASE_LATER.pop().graph.release()
     kept = _KEPT
     if kept is not None and kept.key != key:
         _forget(kept)

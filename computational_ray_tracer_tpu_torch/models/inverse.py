@@ -15,10 +15,10 @@ nothing derived from albedo, emission or light scale).
 :func:`optimize` is the reference's Adam loop, with :class:`DeviceAdam`
 (``optax.adam``'s update in float32 tensor ops, its step count on the
 parameters' device) on every device. On a CUDA scene its step 0 runs
-eagerly and every later step is a replay of one captured CUDA graph
-(:class:`StepGraph`, the port of the reference's jitted ``step``: zero the
-gradients, the loss forward, its backward and the Adam update); on the CPU
-every step runs eagerly.
+eagerly and every later step is a replay of one captured CUDA graph (a
+``graphs.CapturedGraph``, the port of the reference's jitted ``step``: zero
+the gradients, the loss forward, its backward and the Adam update); on the
+CPU every step runs eagerly.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import dataclasses as dc
 import numpy as np
 import torch
 
+from computational_ray_tracer_tpu_torch.models import graphs
 from computational_ray_tracer_tpu_torch.models import integrator as integ
 from computational_ray_tracer_tpu_torch.utils import metrics
 
@@ -69,14 +70,8 @@ def make_render_fn(camera, cfg: integ.RenderConfig, spp=None):
     n_spp = spp if spp is not None else cfg.sampler.spp
 
     def render_image(scene):
-        w, h = cfg.resolution
-        total = torch.zeros((h, w, 3), device=scene.device)
-        wsum = torch.zeros((h, w), device=scene.device)
-        for i in range(n_spp):
-            rgb, wt = integ.render_pass(scene, camera, cfg, filter_obj,
-                                        sensor, i)
-            total = total + rgb * wt[..., None]
-            wsum = wsum + wt
+        total, wsum = integ.render_passes(scene, camera, cfg, filter_obj,
+                                          sensor, 0, n_spp)
         return total / torch.clamp(wsum[..., None], min=1e-12)
 
     return render_image, sensor
@@ -142,41 +137,6 @@ class DeviceAdam:
             p.add_(-self.lr * ((mu / c1) / (torch.sqrt(nu / c2) + self.EPS)))
 
 
-class StepGraph:
-    """One training step captured as a CUDA graph, the port of the
-    reference's jitted ``step``. ``step()`` zeroes the gradients (to None,
-    so the backward takes them from the graph's pool), runs the loss
-    forward and its backward and updates the parameters in place; it
-    returns the loss. It must have run once eagerly before (kernel builds,
-    the per-device constants, the optimizer's state). Each replay adds the
-    capture's launches to the counters (``integrator.capture_counted``). A
-    capture that fails raises. A replay's launch is the recorder's
-    ``crt.step.launch`` span."""
-
-    def __init__(self, step):
-        self.graph = torch.cuda.CUDAGraph()
-        self.loss, self.launches = integ.capture_counted(self.graph, step)
-
-    def run(self):
-        """Replay one step; returns the static loss, which the next replay
-        overwrites."""
-        with metrics.span("crt.step.launch"):
-            self.graph.replay()
-        integ.add_launch_counts(self.launches)
-        return self.loss
-
-
-def on_side_stream(fn):
-    """fn() on a side stream that waits for the current one, which then
-    waits for it (the warm-up of PyTorch's whole-network capture)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        out = fn()
-    torch.cuda.current_stream().wait_stream(side)
-    return out
-
-
 def optimize(scene, camera, cfg, extract_insert, target, steps=50, lr=2e-2,
              callback=None):
     """Adam descent on the scene's parameters against a target image, with
@@ -184,8 +144,8 @@ def optimize(scene, camera, cfg, extract_insert, target, steps=50, lr=2e-2,
     (scene with the final parameters, the parameters, the loss before each
     step). ``callback(i, params, loss)`` after each step gets copies of
     the parameters. On a CUDA scene step 0 runs eagerly and every later
-    step replays one :class:`StepGraph` (the same bits as the eager loop);
-    on the CPU every step runs eagerly."""
+    step replays one captured step (the same bits as the eager loop); on
+    the CPU every step runs eagerly."""
     return _optimize(scene, camera, cfg, extract_insert, target, steps, lr,
                      callback, capture=scene.device.type == "cuda")
 
@@ -207,13 +167,13 @@ def make_step(camera, cfg, extract_insert, target, params, scene, opt):
 def _optimize(scene, camera, cfg, extract_insert, target, steps, lr,
               callback, capture=False):
     """:func:`optimize`; with ``capture`` (a CUDA scene) step 0 runs on a
-    side stream and every later step replays one StepGraph, else every
+    side stream and every later step replays step 1's capture, else every
     step runs eagerly (the card's bitwise reference).
 
-    The call is the recorder's root span ``crt.job``. Between two replays,
-    from the loss read back to the next replay launched (the history, the
-    parameters' copies, the callback and the launch), runs a
-    ``crt.step.host`` span."""
+    The call is the recorder's root span ``crt.job``; a replay's launch is
+    a ``crt.step.launch`` span. Between two replays, from the loss read
+    back to the next replay launched (the history, the parameters' copies,
+    the callback and the launch), runs a ``crt.step.host`` span."""
     with metrics.span("crt.job", root=True):
         extract, insert = extract_insert
         params = leaf_params(extract(scene))
@@ -222,14 +182,14 @@ def _optimize(scene, camera, cfg, extract_insert, target, steps, lr,
                          opt)
         history, graph, host = [], None, None
         for i in range(steps):
-            if graph is not None:
-                loss = graph.run()
-            elif capture and i == 0:
-                loss = on_side_stream(step)
+            if capture and i == 0:
+                loss = graphs.on_side_stream(step)
             elif capture:
-                opt.zero_grad()
-                graph = StepGraph(step)
-                loss = graph.run()
+                if graph is None:
+                    opt.zero_grad()
+                    graph = graphs.CapturedGraph(step)
+                with metrics.span("crt.step.launch"):
+                    loss = graph.replay()
             else:
                 loss = step()
             if host is not None:

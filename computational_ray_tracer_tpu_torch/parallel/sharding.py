@@ -30,16 +30,16 @@ all_reduce and broadcast, and so two ranks can share one card over gloo.
 
 On NCCL the steps are the reference's one device program each: after one
 eager step, ``render_distributed`` replays a captured render step
-(:class:`RenderStepGraph`) and ``make_train_step``'s step a captured train
-step (:class:`TrainStepGraph`), each on a sample index held on the device,
-with the eager steps' bits. Gloo's collectives cannot be captured, so on
+(``integrator.capture_sums``) and ``make_train_step``'s step a captured
+train step (:func:`train_graph`), each on a sample index held on the
+device, with the eager steps' bits. Gloo's collectives cannot be captured, so on
 gloo every step runs eagerly (``captures``). NCCL takes one rank a device.
 A capture across ranks is verified on four NVIDIA H100 80GB HBM3 joined by
 NVLink (NCCL 2.28.9, torch 2.11.0+cu128): ``render_distributed`` on a
 (2, 2) mesh replays its step graph in lockstep on the four ranks with the
 eager steps' bits, every rank holding the same film (the benchmark's
 ``cornell.sharded4`` cell). Every frame captures its step graph anew into
-one memory pool a card kept for the process (``_step_pool``), so that
+one memory pool a card kept for the process (``graphs.kept_pool``), so that
 after its first frames a process allocates and frees no device memory.
 
 A ``render_distributed`` call is the recorder's root span ``crt.frame``
@@ -61,6 +61,7 @@ import torch.distributed as dist
 import torch.distributed.nn.functional as dist_fn
 from torch.distributed.device_mesh import DeviceMesh
 
+from computational_ray_tracer_tpu_torch.models import graphs
 from computational_ray_tracer_tpu_torch.models import integrator as integ
 from computational_ray_tracer_tpu_torch.models import inverse as inv
 from computational_ray_tracer_tpu_torch.ops import film as filmmod
@@ -198,68 +199,13 @@ def make_sharded_render(scene_template, camera, cfg, mesh):
     return step, sensor
 
 
-# Each card's memory pool for render_distributed's step graphs, with the
-# graph that holds it (see _step_pool).
-_STEP_POOLS = {}
-
-
-def _step_pool(device):
-    """The memory pool (a ``torch.cuda.graph_pool_handle``) that
-    :class:`RenderStepGraph` captures into on ``device``, kept for the
-    process. torch frees a graph pool, on the card and in pinned host
-    memory, once no graph holds it: a graph of one fill, captured into the
-    pool once and never replayed, holds it. So a frame's capture takes the
-    blocks the last frame's graph released, where a pool of its own is
-    allocated anew and freed again every frame; and the capture leaves the
-    allocator's cache as it is (``integ.capture_counted``), so the next
-    eager step allocates nothing either. On four H100s those frees and
-    allocations took 31 ms of a rank's ~200 ms of host work a frame
-    (median), and stalled all four ranks at once by up to half a
-    second."""
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
-    if index not in _STEP_POOLS:
-        pool, holder = torch.cuda.graph_pool_handle(), torch.cuda.CUDAGraph()
-        with torch.cuda.device(index), torch.cuda.graph(holder, pool=pool):
-            torch.zeros((), device=device)
-        _STEP_POOLS[index] = pool, holder
-    return _STEP_POOLS[index][0]
-
-
-class RenderStepGraph(integ.PassGraph):
-    """One sharded render step captured as a CUDA graph, the port of the
-    reference's jitted ``step``: each replay runs ``sums(idx)`` (the rank's
-    pass, the sp all_reduce and the zero-padded dp all_reduce; see
-    ``_sharded_sums``) on the device index ``idx`` (0-d int64, first
-    ``sample_idx``), adds the result into the static film sums as
-    ``Film.merge`` adds it, and steps ``idx`` by ``n_sp``. ``sums`` must
-    have run once eagerly before (kernel builds, the per-device constants
-    and the NCCL communicators, which start at their first collective). A
-    capture that fails raises. The graph is captured into the card's
-    :func:`_step_pool`."""
-
-    def __init__(self, sums, n_sp, sample_idx, resolution, device):
-        self.n_sp = n_sp
-        super().__init__(sums, sample_idx, resolution, device)
-
-    def _capture(self, fn):
-        return integ.capture_counted(self.graph, fn,
-                                     pool=_step_pool(self.idx.device))
-
-    def one_pass(self, pass_fn):
-        rgb, wt = pass_fn(self.idx)
-        self.rgb_sum.add_(rgb)
-        self.weight_sum.add_(wt)
-        self.idx.add_(self.n_sp)
-
-
 @torch.no_grad()
 def render_distributed(scene, camera, cfg, mesh=None):
     """The sharded render: cfg.sampler.spp passes in steps of n_sp (the
     last step runs past spp when n_sp does not divide it, as the
     reference's does). The mesh defaults to every rank on dp. On a mesh
     whose backend is NCCL (``captures``) the first step runs eagerly and
-    every later step replays one :class:`RenderStepGraph` (the bits of the
+    every later step replays one captured step (the bits of the
     eager steps of :func:`make_sharded_render`), released before the call
     returns; on gloo every step runs eagerly. The call is the recorder's
     root span ``crt.frame`` (see the module's docstring)."""
@@ -274,12 +220,12 @@ def render_distributed(scene, camera, cfg, mesh=None):
         if captures(mesh) and len(bases) > 1:
             with metrics.span("crt.pass.eager"):
                 film = film.merge(filmmod.Film(*sums(scene, 0), n_sp))
-            graph = RenderStepGraph(lambda idx: sums(scene, idx), n_sp, n_sp,
-                                    cfg.resolution, scene.device)
-            rgb, wt = graph.run(len(bases) - 1, film.rgb_sum,
-                                film.weight_sum)
-            with metrics.span("crt.pass.release"):
-                graph.graph.reset()
+            graph = integ.capture_sums(lambda idx: sums(scene, idx), n_sp,
+                                       n_sp, cfg.resolution, scene.device,
+                                       kept=True)
+            rgb, wt = integ.replay_sums(graph, len(bases) - 1, film.rgb_sum,
+                                        film.weight_sum)
+            graph.release()
             return filmmod.Film(rgb, wt, n_sp * len(bases)), sensor
         with metrics.span("crt.pass.eager"):
             for base in bases:
@@ -324,48 +270,19 @@ def step_route(captured_backend, key, last):
     return "warm-up"
 
 
-def _set_index(idx, sample_idx):
-    """The static device index ``idx`` set to ``sample_idx`` (an int or a
-    tensor), with no read back to the host."""
-    if isinstance(sample_idx, torch.Tensor):
-        idx.copy_(sample_idx.reshape(()))
-    else:
-        idx.fill_(int(sample_idx))
-
-
-class TrainStepGraph:
-    """One sharded train step captured as a CUDA graph, the port of the
-    reference's jitted ``train_step``: ``step(params, opt, scene, target,
-    idx)`` (the gradients set to None, the rank's pass, the differentiable
-    sp sums, the loss, autograd.grad, the flat gradient all_reduce and its
-    mean, the optimizer step, the dp loss all_reduce) on a static target
-    buffer and a static 0-d device index. It must have run once eagerly
-    before with the same objects (the optimizer's state, the per-device
-    constants, the NCCL communicators). Each replay adds the capture's
-    launches to the counters. A capture that fails raises."""
-
-    def __init__(self, step, params, opt, scene, target, sample_idx):
-        self.idx = torch.zeros((), dtype=torch.int64, device=scene.device)
-        _set_index(self.idx, sample_idx)
-        self.target = target.detach().to(scene.device, copy=True)
-        opt.zero_grad()
-        self.graph = torch.cuda.CUDAGraph()
-        self.loss, self.launches = integ.capture_counted(
-            self.graph, lambda: step(params, opt, scene, self.target,
-                                     self.idx))
-        self.grads = [(p, p.grad) for p in params.values()]
-
-    def run(self, target, sample_idx):
-        """One replay at ``sample_idx`` against ``target``; returns the
-        loss before the update (a copy: the next replay overwrites the
-        static one) and leaves the gradients in the leaves' ``.grad``."""
-        self.target.copy_(target)
-        _set_index(self.idx, sample_idx)
-        self.graph.replay()
-        integ.add_launch_counts(self.launches)
-        for p, g in self.grads:
-            p.grad = g
-        return self.loss.clone()
+def train_graph(eager, params, opt_state, scene, target):
+    """One sharded train step captured (a ``graphs.CapturedGraph``), the
+    port of the reference's jitted ``train_step``: ``eager(params,
+    opt_state, scene, target, idx)`` (:func:`make_train_step`'s eager
+    route) on a static target (its ``state``) and a static 0-d device index
+    (its ``idx``), which the caller sets before each replay. It must have
+    run once eagerly before with the same objects (the optimizer's state,
+    the per-device constants, the NCCL communicators)."""
+    idx = torch.zeros((), dtype=torch.int64, device=scene.device)
+    static = target.detach().to(scene.device, copy=True)
+    opt_state.zero_grad()
+    return graphs.CapturedGraph(
+        lambda: eager(params, opt_state, scene, static, idx), idx, (static,))
 
 
 def make_train_step(scene_template, camera, cfg, mesh, param_labels,
@@ -388,10 +305,11 @@ def make_train_step(scene_template, camera, cfg, mesh, param_labels,
 
     Its route (:func:`step_route`; ``train_step.route`` after each
     call): on NCCL with a capturable optimizer the first call runs
-    eagerly on a side stream, the second captures one
-    :class:`TrainStepGraph` and every later call with the same leaves,
-    optimizer and scene copies ``target`` and ``sample_idx`` into its
-    static inputs and replays it (the eager route's bits); other leaves,
+    eagerly on a side stream, the second captures one :func:`train_graph`
+    and every later call with the same leaves, optimizer and scene copies
+    ``target`` and ``sample_idx`` into its static inputs and replays it
+    (the eager route's bits; the loss returned is a copy, and the
+    gradients the replay left are rebound to the leaves); other leaves,
     another optimizer or another scene start that sequence again. On gloo,
     or with another optimizer (``torch.optim.SGD`` to read the gradient),
     every call runs eagerly. ``train_step`` is a :class:`TrainStep`; its
@@ -447,7 +365,7 @@ class TrainStep:
     def __init__(self, eager, captured_backend):
         self.eager = eager
         self.captured_backend = captured_backend
-        self.last = self.graph = None
+        self.last = self.graph = self.grads = None
 
     @property
     def route(self):
@@ -461,11 +379,16 @@ class TrainStep:
             loss = self.eager(*args)
         elif route == "warm-up":
             self.graph = None
-            loss = inv.on_side_stream(lambda: self.eager(*args))
+            loss = graphs.on_side_stream(lambda: self.eager(*args))
         else:
             if route == "capture":
-                self.graph = TrainStepGraph(self.eager, *args)
-            loss = self.graph.run(target, sample_idx)
+                self.graph = train_graph(self.eager, *args[:4])
+                self.grads = [(p, p.grad) for p in params.values()]
+            self.graph.state[0].copy_(target)
+            self.graph.set_index(sample_idx)
+            loss = self.graph.replay().clone()
+            for p, g in self.grads:
+                p.grad = g
         self.last = (key, route)
         return params, opt_state, loss
 

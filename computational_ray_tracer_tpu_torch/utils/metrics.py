@@ -177,30 +177,31 @@ class Span:
             self.parent = outer.id
         self.request = self.id if self.root or outer is None \
             else outer.request
-        if _RANGE is not None and _profiling():
-            self._range = _RANGE(self.name)
-            self._range.__enter__()
         if self.fine and capturing():
             self.events = (torch.cuda.Event(enable_timing=True, external=True),
                            torch.cuda.Event(enable_timing=True, external=True))
             self.events[0].record()
         rec.stack.append(self)
         rec.ring.append(self)
+        # Each host stamp is read next to the profiler's range edge: a
+        # preemption between the two reads sets them apart by its length.
+        if _RANGE is not None and _profiling():
+            self._range = _RANGE(self.name)
+            self._range.__enter__()
         self.start = time.perf_counter()
         return self
 
     def close(self):
         """Close the span, and any span still open inside it."""
-        end = time.perf_counter()
         stack = self.rec.stack
         while stack:
             top = stack.pop()
-            top.end = end
             if top.events is not None:
                 top.events[1].record()
             if top._range is not None:
                 top._range.__exit__(None, None, None)
-                top._range = None
+            top.end = time.perf_counter()
+            top._range = None
             if top is self:
                 break
 

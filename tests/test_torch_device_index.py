@@ -3,7 +3,7 @@ tensor against the same passes on a Python int, and its cycle walk against
 the JAX reference, on the CPU.
 
 ``render()`` and ``entry.canonical_render()`` replay one captured CUDA
-graph for every pass after the first (``integrator.PassGraph``): the
+graph for every pass after the first (``integrator.pass_graph``): the
 captured pass reads its index from a device tensor that each replay steps
 in place, and reads nothing back to the host. Here: the masked cycle walk
 of ``rng.permutation_element`` bit for bit against the reference's
@@ -29,6 +29,7 @@ from test_torch_render import export_scene
 from computational_ray_tracer_tpu.models import integrator as jinteg
 from computational_ray_tracer_tpu.ops import rng as jrng
 from computational_ray_tracer_tpu_torch import convert, entry
+from computational_ray_tracer_tpu_torch.models import graphs
 from computational_ray_tracer_tpu_torch.models import integrator as tinteg
 from computational_ray_tracer_tpu_torch.ops import octree as octmod
 from computational_ray_tracer_tpu_torch.ops import rng as trng
@@ -230,7 +231,7 @@ def test_canonical_render_accumulates_passes(canonical_small):
 @pytest.mark.parametrize("kind", ["stratified", "sobol_global"])
 def test_index_bumped_in_place_equals_int_loop(kind):
     """A pass that reads its index from one tensor bumped in place after
-    each pass (what a PassGraph replay does), summed as the graph sums,
+    each pass (what a pass_graph replay does), summed as the graph sums,
     equals render_passes over Python ints bit for bit; so does render()."""
     scene, camera, cfg = _cornell(kind)
     flt, sensor = tinteg.make_filter(cfg), tsen.PixelSensor.create()
@@ -251,8 +252,8 @@ def test_index_bumped_in_place_equals_int_loop(kind):
 
 @pytest.mark.cuda
 def test_captured_cornell_pass_on_cuda():
-    """Needs a CUDA card and nvcc: a Cornell pass at 64x64 captured in a
-    PassGraph; each replay's sums equal the eager pass's bit for bit, and
+    """Needs a CUDA card and nvcc: a Cornell pass at 64x64 captured by
+    pass_graph; each replay's sums equal the eager pass's bit for bit, and
     render() (captured) equals the eager loop (accumulate without capture)
     with the same launch counts."""
     if not torch.cuda.is_available():
@@ -264,9 +265,9 @@ def test_captured_cornell_pass_on_cuda():
                                             i)
     with torch.no_grad():
         one_pass(0)
-        graph = tinteg.PassGraph(one_pass, 1, cfg.resolution, scene.device)
+        graph = tinteg.pass_graph(one_pass, 1, cfg.resolution, scene.device)
         for s in (1, 2, 3):
-            got = [x.clone() for x in graph.run(1)]
+            got = [x.clone() for x in tinteg.replay_sums(graph, 1)]
             want = tinteg.render_passes(scene, camera, cfg, flt, sensor, s, 1)
             assert torch.equal(got[0], want[0])
             assert torch.equal(got[1], want[1])
@@ -275,11 +276,11 @@ def test_captured_cornell_pass_on_cuda():
                 lambda: tinteg.accumulate(
                     one_pass, tinteg.filmmod.Film.create((64, 64), "cuda"),
                     4, 2)):
-        before = tinteg.launch_counts()
+        before = graphs.launch_counts()
         with torch.no_grad():
             films.append(run())
         counts.append({k: n - before[k]
-                       for k, n in tinteg.launch_counts().items()})
+                       for k, n in graphs.launch_counts().items()})
     assert counts[0] == counts[1] and counts[0]["brute_closest"] > 0
     assert torch.equal(films[0].rgb_sum, films[1].rgb_sum)
     assert torch.equal(films[0].weight_sum, films[1].weight_sum)

@@ -28,6 +28,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from computational_ray_tracer_tpu_torch import entry
+from computational_ray_tracer_tpu_torch.models import graphs
 from computational_ray_tracer_tpu_torch.models import integrator as integ
 from computational_ray_tracer_tpu_torch.ops import camera as cam
 from computational_ray_tracer_tpu_torch.ops import film as filmmod
@@ -210,7 +211,7 @@ class _Graph:
         _Graph.resets += 1
 
 
-def _capture(graph, fn):
+def _capture(graph, fn, pool=None):
     graph.fn = fn
     return None, {}
 
@@ -224,8 +225,8 @@ def stand_in(monkeypatch):
                         lambda scene, camera, cfg, device: key(
                             scene, camera, cfg, CARD))
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
-    monkeypatch.setattr(integ, "capture_counted", _capture)
-    monkeypatch.setattr(integ, "_device_allocs", lambda device: (0, 0))
+    monkeypatch.setattr(graphs, "capture", _capture)
+    monkeypatch.setattr(graphs, "device_allocs", lambda device: (0, 0))
     _Graph.resets = 0
     yield
     if integ._KEPT is not None:
@@ -371,10 +372,10 @@ def test_scene_collection_releases_the_graph(stand_in):
 # ---------------------------------------------------------------------------
 
 def _counted(fn):
-    before = integ.launch_counts()
+    before = graphs.launch_counts()
     with torch.no_grad():
         film = fn()
-    return film, {k: n - before[k] for k, n in integ.launch_counts().items()}
+    return film, {k: n - before[k] for k, n in graphs.launch_counts().items()}
 
 
 @pytest.mark.cuda

@@ -34,6 +34,7 @@ import torch
 
 from chip_smoke import spawn_ranks
 from computational_ray_tracer_tpu_torch import convert
+from computational_ray_tracer_tpu_torch.models import graphs
 from computational_ray_tracer_tpu_torch.models import integrator as tinteg
 from computational_ray_tracer_tpu_torch.models import inverse as tinv
 from computational_ray_tracer_tpu_torch.ops import camera as tcam
@@ -358,16 +359,16 @@ def test_render_distributed_releases_its_graph(world, one_rank,
             resets.append(metrics.RECORDER.stack[-1].name)
             super().reset()
 
-    class StepGraph(par.RenderStepGraph):
+    class Captured(graphs.CapturedGraph):
         def __init__(self, *args):
             super().__init__(*args)
             made.append(weakref.ref(self))
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
-    monkeypatch.setattr(tinteg, "capture_counted", capture)
-    monkeypatch.setattr(tinteg, "_device_allocs", lambda device: (0, 0))
-    monkeypatch.setattr(par, "_step_pool", lambda device: pool)
-    monkeypatch.setattr(par, "RenderStepGraph", StepGraph)
+    monkeypatch.setattr(graphs, "capture", capture)
+    monkeypatch.setattr(graphs, "device_allocs", lambda device: (0, 0))
+    monkeypatch.setattr(graphs, "kept_pool", lambda device: pool)
+    monkeypatch.setattr(graphs, "CapturedGraph", Captured)
     scene, cfg = world[1]["sphere8"], _cfg(8, 4)
     want, _ = par.render_distributed(scene, _camera(8), cfg, one_rank)
     assert made == []
@@ -387,11 +388,11 @@ def test_render_distributed_releases_its_graph(world, one_rank,
 
 
 def test_capture_into_a_pool_keeps_the_cache(monkeypatch):
-    """``capture_counted`` with a pool: the card synchronised, the capture
-    into that pool on the card's one kept side stream, the allocator's
-    cache not emptied, ``capture_end`` reached when the captured function
-    raises, and the launches it counted taken back either way."""
-    calls, streams = [], []
+    """``graphs.capture`` into a kept pool: the card synchronised, the
+    capture into that pool on the pool's stream, the allocator's cache not
+    emptied, ``capture_end`` reached when the captured function raises,
+    and the launches it counted taken back either way."""
+    calls = []
 
     class Graph:
         def capture_begin(self, pool=None):
@@ -409,38 +410,36 @@ def test_capture_into_a_pool_keeps_the_cache(monkeypatch):
                         lambda: calls.append(("sync",)))
     monkeypatch.setattr(torch.cuda, "empty_cache",
                         lambda: calls.append(("empty_cache",)))
-    monkeypatch.setattr(torch.cuda, "Stream",
-                        lambda: streams.append(None) or f"side{len(streams)}")
     monkeypatch.setattr(torch.cuda, "stream", stream)
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    monkeypatch.setattr(tinteg, "_CAPTURE_STREAMS", {})
-    pool = ("pool", 7)
+    pool = (("pool", 7), "holder", "side1")
 
     def captured():
-        tinteg.add_launch_counts({"interp": 3})
+        graphs.add_launch_counts({"interp": 3})
         calls.append(("fn",))
         return "out"
-    before = tinteg.launch_counts()
-    out, launches = tinteg.capture_counted(Graph(), captured, pool=pool)
+    before = graphs.launch_counts()
+    out, launches = graphs.capture(Graph(), captured, pool=pool)
     assert (out, launches["interp"]) == ("out", 3)
-    assert calls == [("sync",), ("stream", "side1"), ("begin", pool),
+    assert calls == [("sync",), ("stream", "side1"), ("begin", ("pool", 7)),
                      ("fn",), ("end",)]
 
     def fails():
-        tinteg.add_launch_counts({"interp": 2})
+        graphs.add_launch_counts({"interp": 2})
         raise RuntimeError("capture failed")
     calls.clear()
     with pytest.raises(RuntimeError, match="capture failed"):
-        tinteg.capture_counted(Graph(), fails, pool=pool)
+        graphs.capture(Graph(), fails, pool=pool)
     assert calls[1] == ("stream", "side1") and calls[-1] == ("end",)
-    assert tinteg.launch_counts() == before and len(streams) == 1
+    assert graphs.launch_counts() == before
 
 
 def test_step_pool_is_kept_per_card(monkeypatch):
-    """``_step_pool``: one pool handle a card for the process, made once
-    and held by a one-fill graph captured into it; a device without an
-    index is the current card."""
-    handles, holders = iter(range(100)), []
+    """``graphs.kept_pool``: one pool handle and one side stream a card
+    for the process, made once on that card, the pool held by a one-fill
+    graph captured into it; a device without an index is the current
+    card."""
+    handles, holders, streams = iter(range(100)), [], []
+    card = [None]
 
     class Graph:
         pass
@@ -450,24 +449,32 @@ def test_step_pool_is_kept_per_card(monkeypatch):
         holders.append((g, pool))
         yield
 
-    monkeypatch.setattr(par, "_STEP_POOLS", {})
+    @contextlib.contextmanager
+    def device(index):
+        card[0] = index
+        yield
+        card[0] = None
+
+    monkeypatch.setattr(graphs, "_KEPT_POOLS", {})
     monkeypatch.setattr(torch.cuda, "graph_pool_handle",
                         lambda: ("handle", next(handles)))
     monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
     monkeypatch.setattr(torch.cuda, "graph", graph)
-    monkeypatch.setattr(torch.cuda, "device",
-                        lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "Stream",
+                        lambda: streams.append(card[0]) or len(streams))
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
     monkeypatch.setattr(torch, "zeros", lambda *a, **kw: None)
     card0, card1 = (types.SimpleNamespace(index=0),
                     types.SimpleNamespace(index=1))
-    first = par._step_pool(card0)
-    assert par._step_pool(card0) == first
-    second = par._step_pool(card1)
-    assert second != first
-    assert par._step_pool(types.SimpleNamespace(index=None)) == second
-    assert [pool for _, pool in holders] == [first, second]
-    assert [par._STEP_POOLS[i][1] for i in (0, 1)] == [g for g, _ in holders]
+    first = graphs.kept_pool(card0)
+    assert graphs.kept_pool(card0) == first
+    second = graphs.kept_pool(card1)
+    assert second[0] != first[0] and second[2] != first[2]
+    assert graphs.kept_pool(types.SimpleNamespace(index=None)) == second
+    assert [pool for _, pool in holders] == [first[0], second[0]]
+    assert [g for g, _ in holders] == [first[1], second[1]]
+    assert streams == [0, 1]
 
 
 def test_sharded_train_step_runs_and_reduces(world):
@@ -642,7 +649,7 @@ def test_train_step_route():
 @pytest.mark.cuda
 def test_captured_sharded_steps_on_cuda():
     """Needs a CUDA card and nvcc: at world size 1 over NCCL,
-    render_distributed (one eager step, then replays of a RenderStepGraph)
+    render_distributed (one eager step, then replays of its step graph)
     against the eager steps of make_sharded_render on the 32x32 Cornell
     box at spp 4, and make_train_step's step with its default DeviceAdam
     (warm-up, capture, replays) against its eager route over 6 steps of
@@ -668,11 +675,11 @@ def test_captured_sharded_steps_on_cuda():
         for run in (eager_render,
                     lambda: par.render_distributed(scene, camera, cfg,
                                                    mesh)[0]):
-            before = tinteg.launch_counts()
+            before = graphs.launch_counts()
             films.append(run())
             torch.cuda.synchronize()
             counts.append({k: n - before[k]
-                           for k, n in tinteg.launch_counts().items()})
+                           for k, n in graphs.launch_counts().items()})
         assert torch.equal(films[0].rgb_sum, films[1].rgb_sum)
         assert torch.equal(films[0].weight_sum, films[1].weight_sum)
         assert films[1].spp_done == 4 and counts[0] == counts[1]
@@ -687,7 +694,7 @@ def test_captured_sharded_steps_on_cuda():
                 lambda *a: a[:2] + (step.eager(*a),))
             params = tinv.leaf_params(ei[0](start))
             opt = init(params)
-            before = tinteg.launch_counts()
+            before = graphs.launch_counts()
             losses, routes = [], []
             for i in range(6):
                 params, opt, loss = call(params, opt, start, target, i)
@@ -695,7 +702,7 @@ def test_captured_sharded_steps_on_cuda():
                 routes.append(step.route)
             torch.cuda.synchronize()
             runs[name] = (params, losses, routes, {
-                k: n - before[k] for k, n in tinteg.launch_counts().items()})
+                k: n - before[k] for k, n in graphs.launch_counts().items()})
         (p_c, l_c, r_c, n_c), (p_e, l_e, _, n_e) = (runs["captured"],
                                                     runs["eager"])
         assert r_c == ["warm-up", "capture"] + ["replay"] * 4

@@ -16,6 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from computational_ray_tracer_tpu_torch import entry
+from computational_ray_tracer_tpu_torch.models import graphs
 from computational_ray_tracer_tpu_torch.models import integrator as integ
 from computational_ray_tracer_tpu_torch.models import inverse as inv
 from computational_ray_tracer_tpu_torch.ops import camera as cam
@@ -41,20 +42,20 @@ class _Graph:
         self.fn = None
 
 
-def _capture(graph, fn):
+def _capture(graph, fn, pool=None):
     graph.fn, graph.out = fn, torch.zeros(())
     return graph.out, {}
 
 
 @pytest.fixture
 def cpu_graphs(monkeypatch):
-    """PassGraph and StepGraph captured into _Graph; the capture's device
-    allocations read 3 / 1 before and 50 / 48 after."""
+    """The pass and the train step captured into _Graph; the capture's
+    device allocations read 3 / 1 before and 50 / 48 after."""
     allocs = iter([(3, 1), (50, 48)] * 8)
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
-    monkeypatch.setattr(integ, "capture_counted", _capture)
-    monkeypatch.setattr(integ, "_device_allocs", lambda device: next(allocs))
-    monkeypatch.setattr(inv, "on_side_stream", lambda fn: fn())
+    monkeypatch.setattr(graphs, "capture", _capture)
+    monkeypatch.setattr(graphs, "device_allocs", lambda device: next(allocs))
+    monkeypatch.setattr(graphs, "on_side_stream", lambda fn: fn())
 
 
 @pytest.fixture

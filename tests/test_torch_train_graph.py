@@ -6,7 +6,7 @@ coefficients alone against the JAX package, as config5_inverse trains).
 ``inverse.optimize`` runs ``inverse.DeviceAdam`` (optax.adam's update in
 float32 tensor ops, its step count on the device) on every device; on a
 CUDA scene it runs step 0 eagerly and replays one captured CUDA graph
-(``inverse.StepGraph``) for every later step. Here: a step of that form
+(a ``graphs.CapturedGraph``) for every later step. Here: a step of that form
 reads nothing back to the host and lifts no host data (the condition of
 the capture; ``torch.optim.Adam`` reads its step counts), ``optimize`` on
 the CPU is the eager DeviceAdam loop bit for bit, ``torch.optim.Adam``
@@ -30,6 +30,7 @@ from computational_ray_tracer_tpu.ops import camera as jcam
 from computational_ray_tracer_tpu.ops import triangle as jtri
 from computational_ray_tracer_tpu.utils import mesh_gen as jmesh_gen
 from computational_ray_tracer_tpu_torch import convert, entry
+from computational_ray_tracer_tpu_torch.models import graphs
 from computational_ray_tracer_tpu_torch.models import integrator as integ
 from computational_ray_tracer_tpu_torch.models import inverse as inv
 from computational_ray_tracer_tpu_torch.ops import camera as cam
@@ -274,11 +275,11 @@ def test_captured_step_on_cuda():
                                               target_img, steps=6, lr=lr)),
             ("eager", lambda: inv._optimize(start, camera, cfg, ei,
                                             target_img, 6, lr, None))):
-        before = integ.launch_counts()
+        before = graphs.launch_counts()
         _, params, history = run()
         torch.cuda.synchronize()
         runs[name] = (params, history, {
-            k: n - before[k] for k, n in integ.launch_counts().items()})
+            k: n - before[k] for k, n in graphs.launch_counts().items()})
     (p_c, h_c, n_c), (p_e, h_e, n_e) = runs["captured"], runs["eager"]
     assert h_c == h_e and h_c[-1] < h_c[0]
     assert all(torch.equal(p_c[k], p_e[k]) for k in p_e)

@@ -17,7 +17,7 @@ canonical frame (``canonical``: ``entry.canonical_setup``, the
 ``entry.canonical_pass``, the pass ``canonical_render`` runs; ``--res``
 500 is its size). Each scene named, in one process: one warm-up pass,
 then each side in turn, first the eager pass, then the pass captured in an
-``integrator.PassGraph`` and replayed (``render()``'s route on the card):
+``integrator.pass_graph`` and replayed (``render()``'s route on the card):
 ``--reps`` unprofiled passes, each timed on the host clock from its start
 to a ``synchronize`` (the pass's wall time); one pass under
 ``torch.profiler`` with CPU and CUDA activities, whose kernel durations
@@ -37,7 +37,7 @@ imports nothing of JAX.
 every leaf of ``inverse.albedo_and_emission_params``; the step
 ``inverse.optimize`` runs on the card: zero the gradients, the 8 passes and
 the MSE, the backward, ``inverse.DeviceAdam``), in the same two sides: the
-eager step, then the step captured in an ``inverse.StepGraph`` and
+eager step, then the step captured in a ``graphs.CapturedGraph`` and
 replayed; the row also carries the kernel wrappers' launches a step and
 the share of the interpolation backward kernel. Its files are named
 ``config5_train``.
@@ -56,6 +56,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from computational_ray_tracer_tpu_torch import entry  # noqa: E402
+from computational_ray_tracer_tpu_torch.models import graphs  # noqa: E402
 from computational_ray_tracer_tpu_torch.models import (  # noqa: E402
     integrator as integ)
 from computational_ray_tracer_tpu_torch.models import (  # noqa: E402
@@ -155,19 +156,19 @@ def profile_train(reps, out, dev):
     params = inv.leaf_params(ei[0](start))
     opt = inv.DeviceAdam(list(params.values()), lr)
     step = inv.make_step(camera, cfg, ei, target_img, params, start, opt)
-    inv.on_side_stream(step)
-    before = integ.launch_counts()
+    graphs.on_side_stream(step)
+    before = graphs.launch_counts()
     step()
-    launches = {k: n - before[k] for k, n in integ.launch_counts().items()}
+    launches = {k: n - before[k] for k, n in graphs.launch_counts().items()}
     prof, eager = measure(step, reps)
     prof.export_chrome_trace(os.path.join(out, "config5_train_trace.json"))
     opt.zero_grad()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    graph = inv.StepGraph(step)
+    graph = graphs.CapturedGraph(step)
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
-    prof, replay = measure(graph.run, reps)
+    prof, replay = measure(graph.replay, reps)
     prof.export_chrome_trace(os.path.join(out,
                                           "config5_train_graph_trace.json"))
     assert graph.launches == launches, (graph.launches, launches)
@@ -213,10 +214,11 @@ def main():
                                                   f"{name}_trace.json"))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            graph = integ.PassGraph(one_pass, 1, resolution, dev)
+            graph = integ.pass_graph(one_pass, 1, resolution, dev)
             torch.cuda.synchronize()
             capture_s = time.perf_counter() - t0
-            prof, replay = measure(lambda: graph.run(1), args.reps)
+            prof, replay = measure(lambda: integ.replay_sums(graph, 1),
+                                   args.reps)
             prof.export_chrome_trace(os.path.join(
                 args.out, f"{name}_graph_trace.json"))
         del graph

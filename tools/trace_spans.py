@@ -46,8 +46,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import torch  # noqa: E402
 
-from computational_ray_tracer_tpu_torch.models import (  # noqa: E402
-    integrator as integ)
+from computational_ray_tracer_tpu_torch.models import graphs  # noqa: E402
 from computational_ray_tracer_tpu_torch.utils import metrics  # noqa: E402
 
 SPAN_METRICS = ("eager_pass_ms.frames", "capture_ms.frames",
@@ -145,8 +144,8 @@ def cost(reps):
                 pass
             with rec.span("crt.pass.capture") as span:
                 if reads:
-                    before = integ._device_allocs(dev)
-                    after = integ._device_allocs(dev)
+                    before = graphs.device_allocs(dev)
+                    after = graphs.device_allocs(dev)
                     span.attrs.update(device_allocs=after[0] - before[0],
                                       device_frees=after[1] - before[1])
             with rec.span("crt.pass.release"):
@@ -168,7 +167,7 @@ def cost(reps):
         "frame_spans_us": _us(lambda: frame(False), reps),
         "step_us": _us(step, reps),
         "fine_span_off_us": _us(fine, reps),
-        "allocator_read_us": _us(lambda: integ._device_allocs(dev), reps),
+        "allocator_read_us": _us(lambda: graphs.device_allocs(dev), reps),
         "profiler_recording": metrics.recording()}))
 
 
