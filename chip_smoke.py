@@ -261,6 +261,18 @@ non-zero:
    of every run bitwise equal, the launches of both routes equal (each
    step a replay's), the loss falling; s/step of each run (steady: the
    eager loop from step 1, the replays from step 2) and the medians;
+26. (four cards only: ``tools/smoke_phases.py 26``) render_distributed's
+   kept step graph across frames: four ranks over NCCL, each on its own
+   card, on a (2, 2) mesh (KEPT_LAYOUT, the cell ``cornell.sharded4``'s),
+   the Cornell headline; a warm-up frame at KEPT_WARMUP_SPP passes, then
+   a frame at each of KEPT_SEEDS (the first captures anew, as its spp
+   differs; the others replay the kept graph) and each again as
+   make_sharded_render's eager steps, every launch count at 0 before each
+   run and read after: every film bitwise the eager steps' and rank 0's,
+   the launches equal, the first film unchanged by the later frames; the
+   hit share, each frame's seconds on each route, rank 0's peak memory,
+   and each rank's seconds in destroy_process_group, called with its
+   scene and kept graph alive (within KEPT_TIMEOUT_S);
 13. (printed after 22) a JSON line of the kernels, with a row for each
    brute-force mode, each launch of 4b, each launch of 10b and 12b, the
    interpolation kernel, each case of its backward (9b) and each of
@@ -281,10 +293,12 @@ non-zero:
 
 import contextlib
 import dataclasses
+import hashlib
 import importlib
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -394,6 +408,11 @@ SHARD_GRAPH_STEPS = 20      # 16c (1, 1): steps a turn, captured or eager
 SHARD_TURNS = ("graph", "eager", "graph")   # 16a and 16c (1, 1)
 TWO_RANK_LAYOUTS = ((2, 1), (1, 2))
 RANKS_TIMEOUT_S = 300       # 16b's deadline (their time: PERF.md section 5)
+# 26: the benchmark's cell cornell.sharded4 (a (2, 2) mesh, a warm-up
+# frame at 4 passes), then three frames' sampler seeds.
+KEPT_LAYOUT, KEPT_WARMUP_SPP = (2, 2), 4
+KEPT_SEEDS = (11, (1 << 31) + 7, (1 << 32) + 5)
+KEPT_TIMEOUT_S = 180        # 26's deadline: a teardown that waits fails
 # 17: the sobol_global sample values checked bit for bit, and the new
 # options and cameras of the 128x128 card-vs-CPU passes.
 GRAPH_TURN_PASSES = 8       # 23: passes a turn, eager or replayed
@@ -1940,7 +1959,8 @@ def sharded_render_turns(scene, camera, cfg, mesh, dev):
     captured = par.captures(mesh)
     capture_s = replay_s = per_replay = None
     if captured:
-        sums, _, _ = par._sharded_sums(camera, cfg, mesh)
+        sums = par._sharded_sums(camera, cfg, mesh, integ.make_filter(cfg),
+                                 integ.make_sensor(cfg))
         sums(scene, 0)
         sync(dev)
         t0 = time.perf_counter()
@@ -1980,6 +2000,100 @@ def sharded_render_turns(scene, camera, cfg, mesh, dev):
         "capture_s": capture_s,
         "launches_per_pass": {k: n / spp for k, n in counts["graph"].items()},
         "launches": counts["graph"]}
+
+
+def film_digest(film):
+    """SHA-256 of a film's sums, bit for bit."""
+    h = hashlib.sha256()
+    for t in (film.rgb_sum, film.weight_sum):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def kept_sharded_rank(rank, world, address, tmp):
+    """A rank of phase 26: joins the NCCL group of ``world`` ranks (one
+    card each) at ``address``, renders the Cornell headline through
+    render_distributed on the KEPT_LAYOUT mesh (a warm-up frame at
+    KEPT_WARMUP_SPP, then a frame at each of KEPT_SEEDS) and each of those
+    frames again as make_sharded_render's eager steps, every launch count
+    at 0 before each run and read after; writes its results to
+    tmp/rank<rank>.pt, then leaves the group as the benchmark's rank 0
+    does, the scene still alive (the kept graph holds NCCL kernels)."""
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()
+    par.init_distributed(address, world, rank)
+    mesh = par.make_mesh(*KEPT_LAYOUT)
+    scene, camera, cfg = entry.cornell_setup(HEADLINE_RES, HEADLINE_SPP, dev)
+    with_seed = lambda seed, spp=HEADLINE_SPP: dataclasses.replace(
+        cfg, sampler=dataclasses.replace(cfg.sampler, seed=seed, spp=spp))
+    par.render_distributed(scene, camera, with_seed(1, KEPT_WARMUP_SPP), mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"frames": []}
+    first = None
+    for seed in KEPT_SEEDS:
+        metrics.reset()
+        (film, _), dt, launches = counted_run(
+            lambda: par.render_distributed(scene, camera, with_seed(seed),
+                                           mesh), dev)
+        graph = {k: metrics.counters().get("crt.graph." + k, 0)
+                 for k in ("kept", "captured")}
+        want, dt_eager, eager_launches = counted_run(
+            lambda: eager_sharded_render(scene, camera, with_seed(seed),
+                                         mesh), dev)
+        first = first or (film, film_digest(film))
+        out["frames"].append({
+            "seed": seed, "s": dt, "eager_s": dt_eager, **graph,
+            "bitwise": (torch.equal(film.rgb_sum, want.rgb_sum)
+                        and torch.equal(film.weight_sum, want.weight_sum)
+                        and film.spp_done == want.spp_done),
+            "launches_equal": launches == eager_launches,
+            "launches": launches, "digest": film_digest(film)})
+    out["first_film_kept"] = film_digest(first[0]) == first[1]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    t0 = time.perf_counter()
+    torch.distributed.destroy_process_group()
+    out["destroy_s"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def kept_sharded_phase(card, world=4):
+    """Phase 26 (see the module docstring): ``world`` ranks on as many
+    cards."""
+    t_phase = time.perf_counter()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        address = f"tcp://127.0.0.1:{sk.getsockname()[1]}"
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(kept_sharded_rank, (world, address, tmp), world,
+                    KEPT_TIMEOUT_S)
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+    frames = [r["frames"] for r in ranks]
+    for r, rank_frames in enumerate(frames):
+        for f, f0 in zip(rank_frames, frames[0]):
+            assert f["bitwise"] and f["launches_equal"], \
+                f"26: rank {r} seed {f['seed']} differs from the eager steps"
+            assert f["digest"] == f0["digest"], \
+                f"26: rank {r}'s film differs from rank 0's"
+        assert [(f["kept"], f["captured"]) for f in rank_frames] == \
+            [(0, 1)] + [(1, 0)] * (len(KEPT_SEEDS) - 1), rank_frames
+        assert ranks[r]["first_film_kept"], f"26: rank {r}'s first film moved"
+    kept = sum(f["kept"] for f in frames[0])
+    print("phase26", json.dumps({
+        "world": world, "layout": KEPT_LAYOUT, "res": HEADLINE_RES,
+        "spp": HEADLINE_SPP, "warmup_spp": KEPT_WARMUP_SPP,
+        "seeds": KEPT_SEEDS, "films_bitwise": True, "ranks_equal": True,
+        "hit_share": kept / len(frames[0]),
+        "frame_s": [[f["s"] for f in fr] for fr in frames],
+        "eager_frame_s": [[f["eager_s"] for f in fr] for fr in frames],
+        "launches": frames[0][-1]["launches"],
+        "rank0_peak_bytes": ranks[0]["peak_bytes"],
+        "destroy_s": [r["destroy_s"] for r in ranks],
+        "phase_s": time.perf_counter() - t_phase, "card": card}), flush=True)
 
 
 def config5_target(dev, scale):

@@ -738,9 +738,10 @@ def scene_leaves(obj):
     return [obj]
 
 
-def kept_key(scene, camera, cfg: RenderConfig, device):
+def kept_key(scene, camera, cfg: RenderConfig, device, layout=()):
     """The key under which :func:`render` keeps its captured pass for
-    ``scene`` on ``device`` (the scene's), or None where it keeps none: off
+    ``scene`` on ``device`` (the scene's), and ``sharding.render_distributed``
+    its step graph, or None where neither keeps one: off
     the card, for a compacted render (eager, with host reads), and while a
     profiler records (the call's fine spans and ``crt.bounce.*`` counters
     come from its own eager pass and capture, as without a kept pass; the
@@ -753,8 +754,13 @@ def kept_key(scene, camera, cfg: RenderConfig, device):
       identity, its other values by value: a rebound field captures anew;
     - the camera by value;
     - ``cfg`` with the sampler's seed at 0, but for ``sobol_global``, whose
-      draws take an int seed (``ops/rng.py``): its seed stays in the key;
-    - the device."""
+      draws take an int seed (``ops/rng.py``): its seed stays in the key.
+      ``spp`` stays: the Sobol' and stratified draws permute over it
+      (``rng_kernel.draw_params``), so a graph captured at one ``spp``
+      draws other samples at another;
+    - the device;
+    - ``layout``: what else the graph was captured on (the sharded step's
+      mesh, ``sharding.mesh_key``); empty for :func:`render`."""
     device = torch.device(device)
     if (device.type != "cuda" or (cfg.compact and cfg.integrator != "direct")
             or metrics.recording()):
@@ -764,12 +770,13 @@ def kept_key(scene, camera, cfg: RenderConfig, device):
             cfg.sampler, seed=0))
     leaves = tuple(("id", id(x)) if isinstance(x, (torch.Tensor, np.ndarray))
                    else x for x in scene_leaves(scene))
-    return leaves, camera, cfg, device
+    return leaves, camera, cfg, device, tuple(layout)
 
 
 class KeptPass:
     """What :func:`render` keeps across calls: the captured
-    :func:`pass_graph` (``graph``), the device seed its draws read
+    :func:`pass_graph` (``graph``; ``sharding.render_distributed`` keeps
+    its step graph in one of its own), the device seed its draws read
     (``seed``, 0-d int64; None for ``sobol_global``), the config, filter
     and sensor it was captured with, and, once :meth:`hold` has run, its
     ``key`` (:func:`kept_key`), every tensor its replays read outside the
@@ -787,35 +794,47 @@ class KeptPass:
         self.cfg = cfg
         self.filter, self.sensor = make_filter(cfg), make_sensor(cfg)
 
-    def hold(self, scene, camera, cfg: RenderConfig):
+    def hold(self, scene, camera, cfg: RenderConfig, forget=None,
+             layout=()):
         """Take the key and the pins of the scene as the capture left it
         (with the tables its first pass built, such as the mesh's vertex
         table): the scene's leaves, so that no rebound field's id is
         reused while the key holds it, and the camera's frame, which sits
-        in a bounded cache."""
-        self.key = kept_key(scene, camera, cfg, scene.device)
+        in a bounded cache. ``forget(self)`` (default :func:`render`'s)
+        runs when the scene, held weakly, is collected."""
+        self.key = kept_key(scene, camera, cfg, scene.device, layout)
         self.pins = (scene_leaves(scene), camera.frame(scene.device))
-        self.finalizer = weakref.finalize(scene, _forget, self)
+        self.finalizer = weakref.finalize(scene, forget or _forget, self)
+
+    def release(self):
+        """Release the graph, or, while a capture records, at the next
+        kept call (:func:`release_held`), and stop the finalizer."""
+        self.finalizer.detach()
+        if metrics.capturing():
+            _RELEASE_LATER.append(self)
+        else:
+            self.graph.release()
 
 
 # The one KeptPass render() holds: the last key's, or None.
 _KEPT = None
 # Graphs whose scene was collected while a capture ran, released at the
-# next render(): no graph is destroyed while a capture records.
+# next kept call: no graph is destroyed while a capture records.
 _RELEASE_LATER = []
+
+
+def release_held():
+    """Release the graphs :meth:`KeptPass.release` held back."""
+    while _RELEASE_LATER:
+        _RELEASE_LATER.pop().graph.release()
 
 
 def _forget(kept):
     """Drop ``kept`` if it is the kept pass, and release its graph."""
     global _KEPT
-    if kept is not _KEPT:
-        return
-    _KEPT = None
-    kept.finalizer.detach()
-    if metrics.capturing():
-        _RELEASE_LATER.append(kept)
-    else:
-        kept.graph.release()
+    if kept is _KEPT:
+        _KEPT = None
+        kept.release()
 
 
 @torch.no_grad()
@@ -855,8 +874,7 @@ def render(scene, camera, cfg: RenderConfig, film=None, progress=None,
             film, stop, 1 if compact else chunk, progress,
             not compact and scene.device.type == "cuda")
         return film, sensor
-    while _RELEASE_LATER:
-        _RELEASE_LATER.pop().graph.release()
+    release_held()
     kept = _KEPT
     if kept is not None and kept.key != key:
         _forget(kept)

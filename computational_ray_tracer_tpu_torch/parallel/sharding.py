@@ -28,8 +28,8 @@ group (an in-process store) when none is running. The dp gather is an
 all_reduce of the zero-padded film: gloo takes CUDA tensors only in
 all_reduce and broadcast, and so two ranks can share one card over gloo.
 
-On NCCL the steps are the reference's one device program each: after one
-eager step, ``render_distributed`` replays a captured render step
+On NCCL the steps are the reference's one device program each:
+``render_distributed`` replays a captured render step
 (``integrator.capture_sums``) and ``make_train_step``'s step a captured
 train step (:func:`train_graph`), each on a sample index held on the
 device, with the eager steps' bits. Gloo's collectives cannot be captured, so on
@@ -38,21 +38,37 @@ A capture across ranks is verified on four NVIDIA H100 80GB HBM3 joined by
 NVLink (NCCL 2.28.9, torch 2.11.0+cu128): ``render_distributed`` on a
 (2, 2) mesh replays its step graph in lockstep on the four ranks with the
 eager steps' bits, every rank holding the same film (the benchmark's
-``cornell.sharded4`` cell). Every frame captures its step graph anew into
-one memory pool a card kept for the process (``graphs.kept_pool``), so that
-after its first frames a process allocates and frees no device memory.
+``cornell.sharded4`` cell).
+
+``render_distributed`` keeps its step graph across calls, as ``render()``
+keeps its pass: one ``integrator.KeptPass`` (the sampler seed a device
+input), under ``integrator.kept_key`` with the mesh (:func:`mesh_key`). A
+call with the kept key writes its seed and replays the graph for every
+step; a miss runs the first step eagerly and captures a new graph in place
+of the old, which it releases. The graphs live in one memory pool a card
+kept for the process (``graphs.kept_pool``), so that after its first
+frames a process allocates and frees no device memory. The route is the
+same on every rank: each asks for one (:func:`frame_route`) and every rank
+takes the last in ``ROUTES`` that any asks for (:func:`agree`), so a frame
+that any rank records under a profiler captures its own graph on every
+rank, released before the call returns, and leaves the kept one alone. The
+kept graph goes when its scene is collected or, before NCCL tears its
+communicators down, when the process group is destroyed.
 
 A ``render_distributed`` call is the recorder's root span ``crt.frame``
 (``utils/metrics.py``): its eager steps are one ``crt.pass.eager`` span,
 the capture ``crt.pass.capture``, the captured step the fine ``crt.pass``,
-the graph's release ``crt.pass.release``; the sp and the dp all_reduce
+a graph's release ``crt.pass.release``; the sp and the dp all_reduce
 are the fine spans ``crt.collective.sp`` and ``crt.collective.dp``, and the
 counter ``crt.collective.bytes`` holds the bytes the call all-reduces.
+The counters ``crt.graph.kept`` and ``crt.graph.captured`` are 1 where it
+replayed the kept graph or captured one, as in ``integrator.accumulate``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 
 import numpy as np
@@ -65,6 +81,7 @@ from computational_ray_tracer_tpu_torch.models import graphs
 from computational_ray_tracer_tpu_torch.models import integrator as integ
 from computational_ray_tracer_tpu_torch.models import inverse as inv
 from computational_ray_tracer_tpu_torch.ops import film as filmmod
+from computational_ray_tracer_tpu_torch.ops import rng_kernel
 from computational_ray_tracer_tpu_torch.utils import metrics
 
 
@@ -147,16 +164,20 @@ def captures(mesh):
     return dist.get_backend(_axis(mesh, "dp")[2]) == "nccl"
 
 
-def _sharded_sums(camera, cfg, mesh):
-    """(sums, sensor, step bytes): ``sums(scene, base_sample_idx)`` renders
-    sample base + sp on this rank's pixels and returns what a render step
-    adds to the film, every rank the whole of it: (rgb * w (H, W, 3), w
-    (H, W)) summed over sp and gathered over dp. The index is a Python int
-    or a 0-d int64 tensor on the scene's device (then nothing is read back
-    to the host). Step bytes: what one step all-reduces, the rank's
-    block over sp and the zero-padded film over dp."""
-    filter_obj = integ.make_filter(cfg)
-    sensor = integ.make_sensor(cfg)
+def _step_bytes(cfg, mesh):
+    """What one render step all-reduces: the rank's block over sp and the
+    zero-padded film over dp, rgb * w and w, four float32 a pixel."""
+    w, h = cfg.resolution
+    lo, hi = _pixel_block(w * h, mesh)
+    return 16 * ((hi - lo) + w * h)
+
+
+def _sharded_sums(camera, cfg, mesh, filter_obj, sensor):
+    """``sums(scene, base_sample_idx)``: renders sample base + sp on this
+    rank's pixels and returns what a render step adds to the film, every
+    rank the whole of it: (rgb * w (H, W, 3), w (H, W)) summed over sp and
+    gathered over dp. The index is a Python int or a 0-d int64 tensor on
+    the scene's device (then nothing is read back to the host)."""
     w, h = cfg.resolution
     lo, hi = _pixel_block(w * h, mesh)
     sp_rank, sp_group = _axis(mesh, "sp")[1:]
@@ -176,9 +197,7 @@ def _sharded_sums(camera, cfg, mesh):
             dist.all_reduce(full, group=dp_group)     # the gather over dp
         return full[:, :3].reshape(h, w, 3), full[:, 3].reshape(h, w)
 
-    # rgb * w and w, four float32 a pixel, over the rank's block and the
-    # padded film.
-    return sums, sensor, 16 * ((hi - lo) + w * h)
+    return sums
 
 
 def make_sharded_render(scene_template, camera, cfg, mesh):
@@ -188,7 +207,8 @@ def make_sharded_render(scene_template, camera, cfg, mesh):
     whole film. ``base_sample_idx`` is a Python int or a 0-d int64 tensor
     on the scene's device (sp is added on the device; nothing is read
     back to the host). Every call runs eagerly. Returns (step, sensor)."""
-    sums, sensor, _ = _sharded_sums(camera, cfg, mesh)
+    sensor = integ.make_sensor(cfg)
+    sums = _sharded_sums(camera, cfg, mesh, integ.make_filter(cfg), sensor)
     n_sp = _axis(mesh, "sp")[0]
 
     @torch.no_grad()
@@ -199,38 +219,153 @@ def make_sharded_render(scene_template, camera, cfg, mesh):
     return step, sensor
 
 
+def mesh_key(mesh):
+    """What a step graph captured on ``mesh`` depends on besides the
+    scene, the camera and the config (``integrator.kept_key``'s
+    ``layout``): the dims, the ranks, and this rank's group of each dim,
+    by identity (the graph replays the communicators it captured)."""
+    return (tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape),
+            tuple(mesh.mesh.flatten().tolist()),
+            tuple(mesh.get_group(i) for i in range(mesh.ndim)))
+
+
+# A frame's routes on a mesh whose steps are captured, in the order in
+# which the ranks agree on one (:func:`agree`).
+ROUTES = ("replay", "capture", "own")
+
+
+def frame_route(key, kept_key):
+    """The route this rank asks for, from its frame's key
+    (``integrator.kept_key`` with :func:`mesh_key`) and the kept graph's
+    (None without one):
+
+    - "own" without a key (while a profiler records, or for a compacted
+      render): an eager first step, then replays of a capture of its own,
+      released before the call returns; the kept graph is left as it is;
+    - "replay" where the keys are equal: every step a replay of the kept
+      graph, with nothing eager and no capture;
+    - "capture" otherwise: the kept graph released, an eager first step,
+      then replays of a new capture, kept in its place."""
+    if key is None:
+        return "own"
+    return "replay" if key == kept_key else "capture"
+
+
+def agree(route, mesh, device):
+    """The route every rank of ``mesh`` takes: the last of ``ROUTES`` that
+    any of them asks for, by an all_reduce MAX over each dim's group (the
+    communicators the steps use) and one read back. A profiler records on
+    one rank only (the benchmark traces rank 0's card), and a rank's eager
+    step against the others' replayed collectives is untried; so every
+    rank captures where one records or misses."""
+    flag = torch.tensor([ROUTES.index(route)], device=device)
+    for i in range(mesh.ndim):
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=mesh.get_group(i))
+    return ROUTES[int(flag.item())]
+
+
+# The one KeptPass render_distributed holds (its step graph, in the
+# card's kept pool): the last key's, or None.
+_KEPT = None
+
+
+def _forget(kept):
+    """Drop ``kept`` if it is the kept step, and release its graph."""
+    global _KEPT
+    if kept is _KEPT:
+        _KEPT = None
+        kept.release()
+
+
+def _release_before_destroy():
+    """Have ``torch.distributed.destroy_process_group`` release the kept
+    step graph before the groups go (wrapped once a process): NCCL tears a
+    communicator down only once no CUDA graph holds its kernels, so a
+    group destroyed under a kept graph would wait for ever. The scene's
+    collection releases it too, whichever comes first."""
+    destroy = dist.destroy_process_group
+    if getattr(destroy, "releases_kept_step", False):
+        return
+
+    @functools.wraps(destroy)
+    def destroy_process_group(*args, **kwargs):
+        if _KEPT is not None:
+            _forget(_KEPT)
+        return destroy(*args, **kwargs)
+
+    destroy_process_group.releases_kept_step = True
+    dist.destroy_process_group = destroy_process_group
+
+
 @torch.no_grad()
 def render_distributed(scene, camera, cfg, mesh=None):
     """The sharded render: cfg.sampler.spp passes in steps of n_sp (the
     last step runs past spp when n_sp does not divide it, as the
-    reference's does). The mesh defaults to every rank on dp. On a mesh
-    whose backend is NCCL (``captures``) the first step runs eagerly and
-    every later step replays one captured step (the bits of the
-    eager steps of :func:`make_sharded_render`), released before the call
-    returns; on gloo every step runs eagerly. The call is the recorder's
-    root span ``crt.frame`` (see the module's docstring)."""
+    reference's does). The mesh defaults to every rank on dp. On gloo, or
+    in one step, every step runs eagerly. On a mesh whose backend is NCCL
+    (``captures``) the ranks agree on a route (:func:`frame_route`,
+    :func:`agree`) and keep one step graph across calls in a
+    ``integrator.KeptPass`` (the eager steps' bits of
+    :func:`make_sharded_render`): a call with its key writes its seed into
+    the graph's device seed and replays it for every step; a miss runs the
+    first step eagerly and captures the graph it keeps. The returned film
+    owns its tensors. The call is the recorder's root span ``crt.frame``
+    (see the module's docstring)."""
+    global _KEPT
     if mesh is None:
         mesh = make_mesh(device_type=scene.device.type)
-    sums, sensor, step_bytes = _sharded_sums(camera, cfg, mesh)
     n_sp = _axis(mesh, "sp")[0]
     bases = range(0, cfg.sampler.spp, n_sp)
-    film = filmmod.Film.create(cfg.resolution, device=scene.device)
     with metrics.span("crt.frame", root=True):
-        metrics.count("crt.collective.bytes", len(bases) * step_bytes)
+        metrics.count("crt.collective.bytes",
+                      len(bases) * _step_bytes(cfg, mesh))
+        route = "eager"
         if captures(mesh) and len(bases) > 1:
-            with metrics.span("crt.pass.eager"):
-                film = film.merge(filmmod.Film(*sums(scene, 0), n_sp))
-            graph = integ.capture_sums(lambda idx: sums(scene, idx), n_sp,
-                                       n_sp, cfg.resolution, scene.device,
-                                       kept=True)
-            rgb, wt = integ.replay_sums(graph, len(bases) - 1, film.rgb_sum,
-                                        film.weight_sum)
-            graph.release()
-            return filmmod.Film(rgb, wt, n_sp * len(bases)), sensor
+            integ.release_held()
+            key = integ.kept_key(scene, camera, cfg, scene.device,
+                                 mesh_key(mesh))
+            route = agree(frame_route(key, _KEPT and _KEPT.key), mesh,
+                          scene.device)
+        kept = _KEPT if route == "replay" else None
+        if route == "capture":
+            if _KEPT is not None:
+                _forget(_KEPT)
+            kept = integ.KeptPass(scene.device, cfg)
+        if kept is not None and kept.seed is not None:
+            kept.seed.fill_(rng_kernel.seed_word(cfg.sampler.seed))
+        if route == "replay":
+            metrics.count("crt.graph.kept", 1)
+            kept.graph.set_index(0)
+            rgb, wt = integ.replay_sums(kept.graph, len(bases))
+            return (filmmod.Film(rgb.clone(), wt.clone(), n_sp * len(bases)),
+                    kept.sensor)
+        if kept is None:
+            run_cfg, filter_obj = cfg, integ.make_filter(cfg)
+            sensor = integ.make_sensor(cfg)
+        else:
+            run_cfg, filter_obj, sensor = kept.cfg, kept.filter, kept.sensor
+        sums = _sharded_sums(camera, run_cfg, mesh, filter_obj, sensor)
+        film = filmmod.Film.create(cfg.resolution, device=scene.device)
         with metrics.span("crt.pass.eager"):
-            for base in bases:
+            for base in bases if route == "eager" else bases[:1]:
                 film = film.merge(filmmod.Film(*sums(scene, base), n_sp))
-    return film, sensor
+        if route == "eager":
+            return film, sensor
+        graph = integ.capture_sums(lambda idx: sums(scene, idx), n_sp, n_sp,
+                                   cfg.resolution, scene.device, kept=True)
+        metrics.count("crt.graph.captured", 1)
+        rgb, wt = integ.replay_sums(graph, len(bases) - 1, film.rgb_sum,
+                                    film.weight_sum)
+        if kept is None:
+            graph.release()
+        else:
+            kept.graph = graph
+            kept.hold(scene, camera, cfg, _forget, mesh_key(mesh))
+            _KEPT = kept
+            _release_before_destroy()
+            # the next call's replays overwrite the graph's sums
+            rgb, wt = rgb.clone(), wt.clone()
+        return filmmod.Film(rgb, wt, n_sp * len(bases)), sensor
 
 
 def step_route(captured_backend, key, last):

@@ -115,6 +115,15 @@ def test_key_changes_with_a_rebound_tensor(cornell):
     assert integ.kept_key(scene, camera, cfg, CARD) != want
 
 
+def test_key_holds_the_layout(cornell):
+    """The layout a graph was captured on (the sharded step's mesh) is part
+    of the key; render()'s is empty."""
+    scene, camera, cfg = cornell
+    key = lambda layout=(): integ.kept_key(scene, camera, cfg, CARD, layout)
+    assert key() == key(()) != key(("dp", "sp")) == key(["dp", "sp"])
+    assert key()[-1] == ()
+
+
 def test_key_keeps_a_sobol_global_seed(cornell):
     """sobol_global draws take an int seed: another seed is another key,
     the same seed the same key."""
@@ -222,8 +231,8 @@ def stand_in(monkeypatch):
     every capture into a _Graph."""
     key = integ.kept_key
     monkeypatch.setattr(integ, "kept_key",
-                        lambda scene, camera, cfg, device: key(
-                            scene, camera, cfg, CARD))
+                        lambda scene, camera, cfg, device, layout=(): key(
+                            scene, camera, cfg, CARD, layout))
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
     monkeypatch.setattr(graphs, "capture", _capture)
     monkeypatch.setattr(graphs, "device_allocs", lambda device: (0, 0))

@@ -5,9 +5,13 @@ tests of ``tests/test_sharding.py`` at their tolerances, plus the film's
 scatter/merge, the ranks' scene bits, the default optimizer (DeviceAdam)
 against the JAX ``make_train_step``'s optax.adam, and what the captured
 routes on NCCL need: no host read in either step on a device index (a
-one-rank gloo world in the test process) and the train step's route as a
-plain decision. The captures themselves run on the card only (the
-``cuda``-marked test, and ``chip_smoke.py`` phase 16).
+one-rank gloo world in the test process), the train step's route and a
+render frame's route as plain decisions, and render_distributed's kept
+step graph on a one-rank gloo world with the graph stood in for on the
+CPU (a hit replays every step, a new key or mesh captures anew, a
+profiled frame captures its own, the group's destroy releases it). The
+captures themselves run on the card only (the ``cuda``-marked test, and
+``chip_smoke.py`` phases 16 and 26).
 
 The ranks are gloo processes on the CPU, started with
 ``torch.multiprocessing`` (spawn, ``chip_smoke.spawn_ranks``: killed past
@@ -31,6 +35,7 @@ import weakref
 import numpy as np
 import pytest
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from chip_smoke import spawn_ranks
 from computational_ray_tracer_tpu_torch import convert
@@ -339,52 +344,229 @@ def test_render_distributed_spans(world):
                                    2 * 16 * (64 + 256)}
 
 
-def test_render_distributed_releases_its_graph(world, one_rank,
-                                               monkeypatch):
-    """On a one-rank world with the step graph stood in for on the CPU
-    (a graph that runs the captured step at each replay), the captured
-    route gives the eager route's bits, captures into the card's kept
-    pool, resets its graph under ``crt.pass.release`` before it returns
-    and leaves no graph alive."""
+@pytest.fixture
+def kept_route(world, one_rank, monkeypatch):
+    """render_distributed's captured route on a one-rank gloo world in this
+    process (``captures`` patched true), the step graph stood in for on the
+    CPU by a graph that runs the captured step at each replay
+    (``test_torch_tracing``'s), the key taken as on the card. Yields the
+    8x8 sphere scene, the mesh, the kept pool, the pools captured into, the
+    span open at each graph reset, and the graphs made (weakly); the kept
+    step is dropped afterwards, and the group's destroy restored."""
     from test_torch_tracing import _Graph, _capture
-    resets, made, pools = [], [], []
-    pool = object()
+    ns = types.SimpleNamespace(scene=world[1]["sphere8"], mesh=one_rank,
+                               pool=object(), pools=[], resets=[], made=[])
 
     def capture(graph, fn, pool=None):
-        pools.append(pool)
+        ns.pools.append(pool)
         return _capture(graph, fn)
 
     class Graph(_Graph):
         def reset(self):
-            resets.append(metrics.RECORDER.stack[-1].name)
+            ns.resets.append(metrics.RECORDER.stack[-1].name)
             super().reset()
 
     class Captured(graphs.CapturedGraph):
         def __init__(self, *args):
             super().__init__(*args)
-            made.append(weakref.ref(self))
+            ns.made.append(weakref.ref(self))
 
+    key = tinteg.kept_key
+    monkeypatch.setattr(tinteg, "kept_key",
+                        lambda scene, camera, cfg, device, layout=(): key(
+                            scene, camera, cfg, torch.device("cuda", 0),
+                            layout))
     monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
     monkeypatch.setattr(graphs, "capture", capture)
     monkeypatch.setattr(graphs, "device_allocs", lambda device: (0, 0))
-    monkeypatch.setattr(graphs, "kept_pool", lambda device: pool)
+    monkeypatch.setattr(graphs, "kept_pool", lambda device: ns.pool)
     monkeypatch.setattr(graphs, "CapturedGraph", Captured)
-    scene, cfg = world[1]["sphere8"], _cfg(8, 4)
-    want, _ = par.render_distributed(scene, _camera(8), cfg, one_rank)
-    assert made == []
+    monkeypatch.setattr(torch.distributed, "destroy_process_group",
+                        torch.distributed.destroy_process_group)
     monkeypatch.setattr(par, "captures", lambda mesh: True)
+    yield ns
+    if par._KEPT is not None:
+        par._forget(par._KEPT)
+
+
+def _seeded(cfg, seed, **sampler):
+    return dataclasses.replace(cfg, sampler=dataclasses.replace(
+        cfg.sampler, seed=seed, **sampler))
+
+
+def _frame(scene, camera, cfg, mesh):
+    """render_distributed's film, the names of the spans it recorded and
+    the counters of its frame."""
     first = metrics.RECORDER.last_id
-    got, _ = par.render_distributed(scene, _camera(8), cfg, one_rank)
+    film, _ = par.render_distributed(scene, camera, cfg, mesh)
+    rec = _frame_record(first)
+    return film, [name for name, _, _ in rec["spans"]], rec["counters"]
+
+
+def _eager_film(scene, camera, cfg, mesh):
+    """render_distributed's steps as eager calls of make_sharded_render's
+    step (``chip_smoke.eager_sharded_render``)."""
+    from chip_smoke import eager_sharded_render
+    return eager_sharded_render(scene, camera, cfg, mesh)
+
+
+def _same(a, b):
+    return (torch.equal(a.rgb_sum, b.rgb_sum)
+            and torch.equal(a.weight_sum, b.weight_sum)
+            and a.spp_done == b.spp_done)
+
+
+def test_render_distributed_releases_its_graph(kept_route):
+    """The captured route keeps its step graph past the call's return (in
+    the card's kept pool, nothing reset), and releases it under
+    ``crt.pass.release`` when a call with a new key captures anew, the
+    released graph then collected; destroying the group releases the kept
+    one, and no graph is left alive."""
+    k = kept_route
+    cfg = _cfg(8, 4)
+    film, names, _ = _frame(k.scene, _camera(8), cfg, k.mesh)
+    assert names == ["crt.frame", "crt.pass.eager", "crt.pass.capture"]
+    assert k.resets == [] and k.pools == [k.pool]
+    assert len(k.made) == 1 and k.made[0]() is par._KEPT.graph
+    assert _same(film, _eager_film(k.scene, _camera(8), cfg, k.mesh))
+    camera = dataclasses.replace(_camera(8), position=(0.0, 1.0, -4.0))
+    film, names, _ = _frame(k.scene, camera, cfg, k.mesh)
+    assert names == ["crt.frame", "crt.pass.release", "crt.pass.eager",
+                     "crt.pass.capture"]
     gc.collect()
-    assert resets == ["crt.pass.release"]
-    assert pools == [pool]
-    assert len(made) == 1 and made[0]() is None
-    names = [s["name"] for s in metrics.spans() if s["id"] > first]
-    assert names == ["crt.frame", "crt.pass.eager", "crt.pass.capture",
-                     "crt.pass.release"]
-    assert torch.equal(got.rgb_sum, want.rgb_sum)
-    assert torch.equal(got.weight_sum, want.weight_sum)
-    assert got.spp_done == want.spp_done == 4
+    assert k.resets == ["crt.pass.release"] and k.made[0]() is None
+    assert k.pools == [k.pool] * 2
+    assert _same(film, _eager_film(k.scene, camera, cfg, k.mesh))
+    torch.distributed.destroy_process_group()
+    gc.collect()
+    assert par._KEPT is None and k.resets == ["crt.pass.release"] * 2
+    assert all(ref() is None for ref in k.made)
+    par.make_mesh(1, 1, device_type="cpu")     # a group for one_rank's end
+
+
+def test_render_distributed_keeps_its_graph(kept_route):
+    """Two calls with different seeds: the first runs one eager step and
+    captures; the second writes its seed and replays the kept graph for
+    every step (no eager step, no capture, no release; ``crt.graph.kept``
+    1). Both films are the eager steps' at their seeds, bit for bit, and
+    the second call leaves the first film as it was."""
+    k = kept_route
+    cfg = _cfg(8, 4)
+    c0, c1 = _seeded(cfg, 11), _seeded(cfg, (1 << 31) + 9)
+    f0, names, counters = _frame(k.scene, _camera(8), c0, k.mesh)
+    assert counters["crt.graph.captured"] == 1
+    assert "crt.graph.kept" not in counters
+    kept0 = (f0.rgb_sum.clone(), f0.weight_sum.clone())
+    f1, names, counters = _frame(k.scene, _camera(8), c1, k.mesh)
+    assert names == ["crt.frame"]
+    assert counters == {"crt.collective.bytes": 4 * 16 * (64 + 64),
+                        "crt.graph.kept": 1}
+    assert _same(f0, _eager_film(k.scene, _camera(8), c0, k.mesh))
+    assert _same(f1, _eager_film(k.scene, _camera(8), c1, k.mesh))
+    assert not torch.equal(f0.rgb_sum, f1.rgb_sum)
+    assert torch.equal(f0.rgb_sum, kept0[0])
+    assert torch.equal(f0.weight_sum, kept0[1])
+    assert k.resets == [] and len(k.made) == 1
+
+
+# Each change of a call that the kept step graph cannot take.
+FRAME_CHANGES = {
+    "camera": lambda cam, cfg, mesh: (dataclasses.replace(
+        cam, position=(0.0, 1.0, -4.0)), cfg, mesh),
+    "config": lambda cam, cfg, mesh: (cam, dataclasses.replace(
+        cfg, filter_name="box"), mesh),
+    # the Sobol' draws permute over spp: another spp draws other samples
+    "spp": lambda cam, cfg, mesh: (cam, _seeded(cfg, cfg.sampler.seed,
+                                                spp=8), mesh),
+    "mesh": lambda cam, cfg, mesh: (cam, cfg, DeviceMesh(
+        "cpu", torch.arange(1).reshape(1, 1), mesh_dim_names=("sp", "dp"))),
+}
+
+
+@pytest.mark.parametrize("change", sorted(FRAME_CHANGES))
+def test_render_distributed_new_key_captures_anew(kept_route, change):
+    """A new camera, config (other than the seed), spp or mesh misses: the
+    call releases the kept graph, runs an eager step and captures a new
+    one, the eager steps' bits; the call after it replays the new one."""
+    k = kept_route
+    cfg = _seeded(_cfg(8, 4), 5)
+    _frame(k.scene, _camera(8), cfg, k.mesh)
+    old = par._KEPT
+    camera, cfg, mesh = FRAME_CHANGES[change](_camera(8), cfg, k.mesh)
+    film, names, counters = _frame(k.scene, camera, cfg, mesh)
+    assert names == ["crt.frame", "crt.pass.release", "crt.pass.eager",
+                     "crt.pass.capture"]
+    assert counters["crt.graph.captured"] == 1
+    assert par._KEPT is not old and k.resets == ["crt.pass.release"]
+    assert _same(film, _eager_film(k.scene, camera, cfg, mesh))
+    film, names, counters = _frame(k.scene, camera, _seeded(cfg, 6), mesh)
+    assert names == ["crt.frame"] and counters["crt.graph.kept"] == 1
+    assert _same(film, _eager_film(k.scene, camera, _seeded(cfg, 6), mesh))
+
+
+def test_render_distributed_profiled_frame_leaves_the_kept_graph(kept_route):
+    """A call made while a profiler records takes the route "own": an
+    eager step, a capture of its own (its fine spans), released before the
+    call returns, the eager steps' bits; the kept graph is neither
+    replayed nor replaced, and the call after it replays it."""
+    from torch.profiler import ProfilerActivity, profile
+    k = kept_route
+    cfg = _cfg(8, 4)
+    _frame(k.scene, _camera(8), cfg, k.mesh)
+    kept = par._KEPT
+    c = _seeded(cfg, 99)
+    with profile(activities=[ProfilerActivity.CPU]):
+        film, names, counters = _frame(k.scene, _camera(8), c, k.mesh)
+    coarse = [n for n in names if n in ("crt.frame", "crt.pass.eager",
+                                        "crt.pass.capture",
+                                        "crt.pass.release")]
+    assert coarse == ["crt.frame", "crt.pass.eager", "crt.pass.capture",
+                      "crt.pass.release"]
+    assert "crt.collective.sp" in names and "crt.pass" in names
+    assert counters["crt.graph.captured"] == 1
+    assert par._KEPT is kept and k.resets == ["crt.pass.release"]
+    assert _same(film, _eager_film(k.scene, _camera(8), c, k.mesh))
+    film, names, counters = _frame(k.scene, _camera(8), c, k.mesh)
+    assert names == ["crt.frame"] and counters["crt.graph.kept"] == 1
+    assert _same(film, _eager_film(k.scene, _camera(8), c, k.mesh))
+
+
+def test_frame_route():
+    """A frame's route as a plain decision: "own" without a key (while a
+    profiler records, a compacted render), "replay" on the kept key,
+    "capture" on any other key or none kept; the ranks agree on the last
+    of ROUTES any of them asks for, so one that records or misses makes
+    every rank capture."""
+    key, other = ("scene", "camera", "cfg", "cuda:0", ()), ("other",)
+    assert par.frame_route(None, key) == "own"
+    assert par.frame_route(None, None) == "own"
+    assert par.frame_route(key, key) == "replay"
+    assert par.frame_route(key, tuple(key)) == "replay"
+    assert par.frame_route(key, other) == "capture"
+    assert par.frame_route(key, None) == "capture"
+    assert par.ROUTES == ("replay", "capture", "own")
+
+
+def test_agree_on_one_rank(one_rank):
+    """On a one-rank world every route agrees with itself."""
+    for route in par.ROUTES:
+        assert par.agree(route, one_rank, torch.device("cpu")) == route
+
+
+def test_mesh_key():
+    """The mesh's part of the kept key: the dims, the ranks and this rank's
+    group of each dim, by identity; equal for the same groups."""
+    g = [object(), object()]
+
+    def mesh(names=("dp", "sp"), ranks=((0, 1), (2, 3)), groups=g):
+        return types.SimpleNamespace(
+            mesh_dim_names=names, mesh=torch.tensor(ranks), ndim=2,
+            get_group=lambda i: groups[i])
+    assert par.mesh_key(mesh()) == par.mesh_key(mesh())
+    for other in (mesh(names=("sp", "dp")), mesh(ranks=((0, 2), (1, 3))),
+                  mesh(ranks=((0, 1, 2, 3),)),
+                  mesh(groups=[g[0], object()])):
+        assert par.mesh_key(other) != par.mesh_key(mesh())
 
 
 def test_capture_into_a_pool_keeps_the_cache(monkeypatch):
@@ -649,12 +831,13 @@ def test_train_step_route():
 @pytest.mark.cuda
 def test_captured_sharded_steps_on_cuda():
     """Needs a CUDA card and nvcc: at world size 1 over NCCL,
-    render_distributed (one eager step, then replays of its step graph)
-    against the eager steps of make_sharded_render on the 32x32 Cornell
-    box at spp 4, and make_train_step's step with its default DeviceAdam
-    (warm-up, capture, replays) against its eager route over 6 steps of
-    config 5 at 32x32: films, losses, parameters, gradients and launch
-    counts equal."""
+    render_distributed against the eager steps of make_sharded_render on
+    the 32x32 Cornell box at spp 4, three frames at three seeds (the first
+    an eager step and a capture, the second and third replays of the kept
+    step graph, capturing nothing), and make_train_step's step with its
+    default DeviceAdam (warm-up, capture, replays) against its eager route
+    over 6 steps of config 5 at 32x32: films, losses, parameters,
+    gradients and launch counts equal."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: NCCL and a CUDA graph capture run only "
                     "on the card")
@@ -664,26 +847,30 @@ def test_captured_sharded_steps_on_cuda():
     try:
         scene, camera, cfg = entry.cornell_setup(res=32, spp=4,
                                                  device="cuda")
-        render_step, _ = par.make_sharded_render(scene, camera, cfg, mesh)
-
-        def eager_render():
-            film = tfilm.Film.create(cfg.resolution, device="cuda")
-            for base in range(cfg.sampler.spp):
-                film = render_step(scene, film, base)
-            return film
-        films, counts = [], []
-        for run in (eager_render,
-                    lambda: par.render_distributed(scene, camera, cfg,
-                                                   mesh)[0]):
-            before = graphs.launch_counts()
-            films.append(run())
-            torch.cuda.synchronize()
-            counts.append({k: n - before[k]
-                           for k, n in graphs.launch_counts().items()})
-        assert torch.equal(films[0].rgb_sum, films[1].rgb_sum)
-        assert torch.equal(films[0].weight_sum, films[1].weight_sum)
-        assert films[1].spp_done == 4 and counts[0] == counts[1]
-        assert min(counts[0]["brute_closest"], counts[0]["interp"]) > 0
+        kept, seen = [], []
+        for i, seed in enumerate((7, (1 << 31) + 3, (1 << 32) + 5)):
+            c = _seeded(cfg, seed)
+            films, counts = [], []
+            metrics.reset()
+            for run in (lambda: par.render_distributed(scene, camera, c,
+                                                       mesh)[0],
+                        lambda: _eager_film(scene, camera, c, mesh)):
+                before = graphs.launch_counts()
+                films.append(run())
+                torch.cuda.synchronize()
+                counts.append({k: n - before[k]
+                               for k, n in graphs.launch_counts().items()})
+            graph = {k: metrics.counters().get("crt.graph." + k, 0)
+                     for k in ("kept", "captured")}
+            assert graph == ({"kept": 0, "captured": 1} if i == 0
+                             else {"kept": 1, "captured": 0}), graph
+            assert _same(films[0], films[1]), seed
+            assert films[0].spp_done == 4 and counts[0] == counts[1]
+            assert min(counts[0]["brute_closest"], counts[0]["interp"]) > 0
+            kept.append(films[0])
+            seen.append(films[0].rgb_sum.clone())
+        assert all(torch.equal(f.rgb_sum, r) for f, r in zip(kept, seen))
+        assert not torch.equal(seen[0], seen[1])
 
         start, camera, cfg, _, target = config5("cuda", res=32)
         ei = tinv.albedo_and_emission_params(start)
