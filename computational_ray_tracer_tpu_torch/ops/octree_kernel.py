@@ -18,6 +18,12 @@ for ``sm_90a`` at first use.
   (occlusion) run the plain version ``octree.octree_traverse`` for CPU
   tensors and launch the kernel for CUDA tensors, or raise.
   ``LAUNCHES_CLOSEST`` and ``LAUNCHES_ANYHIT`` count kernel launches.
+  Each traversal is a fine span of the recorder, ``crt.octree.closest``
+  or ``crt.octree.anyhit`` (on the card ``octree_live_rays`` and the
+  traverse kernel; on the CPU the plain traversal). Eagerly while a
+  profiler records, the rays handed in go to the counter
+  ``crt.octree.lanes.<mode>`` and those with t_max > 0 to
+  ``crt.octree.live.<mode>``; nothing is counted in a capture.
 
 Outputs are detached (hit ids and barycentrics are sampling decisions; the
 reference gives them zero tangents).
@@ -34,6 +40,7 @@ import torch
 from computational_ray_tracer_tpu_torch.ops import octree as octmod
 from computational_ray_tracer_tpu_torch.ops.mesh_intersect_kernel import (
     check_tensor)
+from computational_ray_tracer_tpu_torch.utils import metrics
 
 LAUNCHES_CLOSEST = 0
 LAUNCHES_ANYHIT = 0
@@ -47,6 +54,10 @@ NODE_LANES = 16      # floats per child slot in a sibling-group row
 # The kernel's stack entry holds a sibling-group id in its upper 24 bits and
 # a mask of 8 child ranks in the lower 8.
 STACK_GROUP_BITS = 24
+
+# The recorder's names of a traversal, by ``anyhit``.
+MODES = ("closest", "anyhit")
+SPANS = ("crt.octree.closest", "crt.octree.anyhit")
 
 # fp32 operations per ray/box slab test: 6 sub, 6 mul, 3 min, 3 max, 2 max
 # (t_near), 2 min (t_far), 1 mul (the gamma widening).
@@ -182,12 +193,13 @@ def _launch(o, d, t_max, packed: PackedOctree, anyhit, stats):
     ptr = lambda x: None if x is None else x.data_ptr()
     scratch = torch.empty(n + 2, dtype=torch.int32, device=dev)
     scratch[:2].zero_()   # the counters; the kernel fills the queue
-    err = lib.crt_octree_traverse(
-        o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n,
-        packed.nodes.data_ptr(), packed.leaf_verts.data_ptr(),
-        packed.row_tri.data_ptr(), packed.depth, int(anyhit), ptr(t),
-        idx.data_ptr(), ptr(b1), ptr(b2), ptr(tests), ptr(pops),
-        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    with metrics.fine_span(SPANS[anyhit]):
+        err = lib.crt_octree_traverse(
+            o.data_ptr(), d.data_ptr(), t_max.data_ptr(), n,
+            packed.nodes.data_ptr(), packed.leaf_verts.data_ptr(),
+            packed.row_tri.data_ptr(), packed.depth, int(anyhit), ptr(t),
+            idx.data_ptr(), ptr(b1), ptr(b2), ptr(tests), ptr(pops),
+            scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"octree_traverse kernel launch failed: error "
                            f"{err} ({build.error_string(err)})")
@@ -203,6 +215,24 @@ def _flat(o, d, t_max):
             t_max.reshape(-1).contiguous())
 
 
+def _count_lanes(t_max, anyhit):
+    """Eagerly while a profiler records: the rays handed to a traversal
+    and those with t_max > 0 (summed on the device), by mode."""
+    if metrics.recording() and not metrics.capturing():
+        mode = MODES[anyhit]
+        metrics.count(f"crt.octree.lanes.{mode}", t_max.numel())
+        metrics.count(f"crt.octree.live.{mode}",
+                      (t_max > 0.0).sum(dtype=torch.float64))
+
+
+def _plain(o, d, t_max, packed, anyhit):
+    """The plain traversal, in the mode's fine span."""
+    with metrics.fine_span(SPANS[anyhit]):
+        return octmod.octree_traverse(o, d, t_max, packed.tree,
+                                      packed.tri_verts, packed.tri_mask,
+                                      pops=True)
+
+
 def octree_intersect(o, d, t_max, packed: PackedOctree, stats=False):
     """Closest hit of rays o/d (..., 3), t_max (...) in the packed octree:
     (t, tri_idx, b1, b2) with t = inf and tri_idx = -1 on a miss, then,
@@ -212,10 +242,9 @@ def octree_intersect(o, d, t_max, packed: PackedOctree, stats=False):
     CPU tensors run the plain version; CUDA tensors launch the kernel, and
     a tensor the kernel does not take raises."""
     batch = o.shape[:-1]
+    _count_lanes(t_max, False)
     if o.device.type == "cpu":
-        out = octmod.octree_traverse(o, d, t_max, packed.tree,
-                                     packed.tri_verts, packed.tri_mask,
-                                     pops=True)
+        out = _plain(o, d, t_max, packed, False)
         return out if stats else out[:4]
     if o.device.type != "cuda":
         raise ValueError(f"octree_intersect: unsupported device {o.device}")
@@ -232,10 +261,9 @@ def octree_anyhit(o, d, t_max, packed: PackedOctree, stats=False):
     first hit; its predicate is the closest-hit test's at t_best = t_max,
     so the bit equals the plain closest hit's ``tri_idx >= 0``."""
     batch = o.shape[:-1]
+    _count_lanes(t_max, True)
     if o.device.type == "cpu":
-        out = octmod.octree_traverse(o, d, t_max, packed.tree,
-                                     packed.tri_verts, packed.tri_mask,
-                                     pops=True)
+        out = _plain(o, d, t_max, packed, True)
         return (out[1] >= 0,) + out[4:] if stats else out[1] >= 0
     if o.device.type != "cuda":
         raise ValueError(f"octree_anyhit: unsupported device {o.device}")
