@@ -273,10 +273,21 @@ non-zero:
    hit share, each frame's seconds on each route, rank 0's peak memory,
    and each rank's seconds in destroy_process_group, called with its
    scene and kept graph alive (within KEPT_TIMEOUT_S);
+27. (run after 23) the shade kernel (ops/shade_kernel.py) against the
+   torch route (integrator._bounce_step_torch) on the card: at each depth
+   of one 512x512 pass of the Cornell cell's scene (golden configuration
+   2, spp 32), the flagship and entry.material_kinds_setup (a sphere of
+   each material kind, textured, a distant light and the quad, depth 5,
+   roulette from 2), every entry of the next state bitwise; the shade
+   and resolve launches timed as replays of a CUDA graph of 20, with the
+   byte bound (shade_lane_bytes at 3.35 TB/s) and the lanes with a hit;
+   the whole bounce of each route timed as replays (4 fused, 2 torch);
+   the launches a pass of render(); nvcc's registers and spills of both
+   kernels where this process built the library;
 13. (printed after 22) a JSON line of the kernels, with a row for each
    brute-force mode, each launch of 4b, each launch of 10b and 12b, the
-   interpolation kernel, each case of its backward (9b) and each of
-   phase 25's sampler draws; the rows of
+   interpolation kernel, each case of its backward (9b), each of phase
+   25's sampler draws and each depth of phase 27; the rows of
    both brute-force modes, both octree modes and the interpolation
    kernel also carry their launches in phases 16 (the world-size-1 runs
    of 16a and 16c), 18-22 and 24, the backward's config 5 row its
@@ -327,6 +338,7 @@ from computational_ray_tracer_tpu_torch.ops import octree_kernel as okern
 from computational_ray_tracer_tpu_torch.ops import rng
 from computational_ray_tracer_tpu_torch.ops import rng_kernel as rk
 from computational_ray_tracer_tpu_torch.ops import sensor as sen
+from computational_ray_tracer_tpu_torch.ops import shade_kernel as sk
 from computational_ray_tracer_tpu_torch.ops import spectrum as spec
 from computational_ray_tracer_tpu_torch.ops import film as filmmod
 from computational_ray_tracer_tpu_torch.ops import triangle as trimod
@@ -3188,6 +3200,120 @@ def sampler_phase(dev, card):
     return rows
 
 
+SHADE_KEYS = ("o", "d", "beta", "L", "alive", "specular", "pdf_prev",
+              "n_prev", "lam_pdf")
+
+
+def shade_lane_bytes(hit, mode, roulette, texture):
+    """The bytes one lane of the shade kernel must move (phase 27's bound):
+    every lane reads its alive, valid and specular flags, pdf_prev, d,
+    beta, L, p and t (99 B) and writes the next state (138 B) and, but in
+    walk mode, the shadow ray and the NEE term (60 B); a lane without a
+    hit also reads the o, n_prev and lam_pdf it passes on (56 B); a lane
+    with one reads its surface, material id, wavelengths, lam_pdf and
+    BSDF draws (109 B), its emission, eta and k rows of the spectral cache
+    (96 B), and but in walk mode the light draws and one light column
+    (44 B), o under MIS (12 B), u_rr with roulette, uv with a texture."""
+    s4 = 4 * sk.S
+    nee = mode != "walk"
+    base = 99 + 138 + 60 * nee
+    if not hit:
+        return base + 56
+    return (base + 109 + 3 * s4 + (12 + s4) * nee + 12 * (mode == "mis")
+            + 4 * bool(roulette) + 8 * bool(texture))
+
+
+def shade_ptxas(log):
+    """nvcc's report lines for the shade and resolve kernels, from this
+    process's build ([] if the library was already built)."""
+    out, keep = [], False
+    for line in ptxas_report(log):
+        if line.startswith("_Z"):
+            keep = "shade_kernel" in line or "resolve_kernel" in line
+        if keep:
+            out.append(line)
+    return out
+
+
+def shade_case(name, setup, dev, card):
+    """Phase 27's rows for one scene: at each depth of one pass, the
+    kernel route's bounce bitwise the torch route's (every state entry);
+    the shade and resolve launches timed as replays of a CUDA graph of 20,
+    with the byte bound; the whole bounce of each route timed likewise."""
+    scene, camera, cfg = setup
+    mode = integ._MODES[cfg.integrator]
+    rows = []
+    with torch.no_grad():
+        pixel, wl, _, o, d = integ.camera_wavefront(
+            camera, cfg, integ.make_filter(cfg), 1, dev)
+        state = integ._init_path_state(scene, o, d, wl)
+        for depth in range(cfg.max_depth):
+            args = (scene, cfg, state, depth, pixel, 1, mode)
+            ref = integ._bounce_step_torch(*args)
+            got = integ._bounce_step_fused(*args)
+            for key in SHADE_KEYS:
+                r, g = ref[key], got[key]
+                bits = (lambda x: x.view(torch.uint8)) if r.dtype == \
+                    torch.bool else (lambda x: x.view(torch.int32))
+                assert torch.equal(bits(r), bits(g)), \
+                    f"27 {name} depth {depth}: {key} differs from the torch route"
+            si, mid, draws, roulette = integ._shade_inputs(*args)
+            launch = lambda: sk.shade_bounce(scene, state, si, mid, draws,
+                                             mode, roulette,
+                                             cfg.ray_eps_scale)
+            ms = per_launch_ms(launch)
+            row = {"case": f"{name}_depth{depth}", "lanes": pixel.numel(),
+                   "mode": mode, "bitwise": True, "ms": ms}
+            if mode != "walk":
+                out = launch()
+                occ = scene_mod.scene_anyhit(scene, *out["shadow"])
+                row["resolve_ms"] = per_launch_ms(
+                    lambda: sk.resolve(out["L"], out["nee"], occ))
+            n_hit = int((si.valid & state["alive"]).sum())
+            n = pixel.numel()
+            tex = scene.texture is not None
+            nbytes = (n_hit * shade_lane_bytes(True, mode, roulette, tex)
+                      + (n - n_hit) * shade_lane_bytes(False, mode,
+                                                       roulette, tex))
+            row.update(hit_lanes=n_hit, bytes=nbytes,
+                       bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                       bound_by="bytes")
+            row["share"] = row["bound_ms"] / ms
+            row["fused_bounce_ms"] = per_launch_ms(
+                lambda: integ._bounce_step_fused(*args), inner=4)
+            row["plain_ms"] = per_launch_ms(
+                lambda: integ._bounce_step_torch(*args), inner=2)
+            rows.append(row)
+            state = ref
+        sync(dev)
+    zero_counts()
+    integ.render(scene, camera, cfg)
+    counts = read_counts()
+    spp = cfg.sampler.spp
+    for row in rows:
+        row.update(launches_per_pass=counts["shade"] / spp,
+                   resolve_launches_per_pass=counts["shade_resolve"] / spp,
+                   card=card)
+        print("phase27", json.dumps(row), flush=True)
+    return rows
+
+
+def shade_phase(dev, card):
+    """Phase 27 (see the module docstring); returns its rows."""
+    t_phase = time.perf_counter()
+    print("phase27_ptxas", json.dumps(shade_ptxas(build.build_log)),
+          flush=True)
+    rows = shade_case("cornell_cell", entry.golden2_cornell_path(
+        HEADLINE_RES, HEADLINE_SPP, dev), dev, card)
+    rows += shade_case("flagship", entry.flagship_setup(
+        HEADLINE_RES, MESH_SPP, device=dev), dev, card)
+    rows += shade_case("material_kinds", entry.material_kinds_setup(
+        HEADLINE_RES, device=dev), dev, card)
+    print("phase27_s", json.dumps({"seconds": time.perf_counter() - t_phase}),
+          flush=True)
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     # phase 0
@@ -3382,6 +3508,8 @@ def main():
     # phase 23: the captured pass, on the scenes of phases 4-12
     graph_phase(dev, card, (m_scene, m_camera, m_cfg), c_scene)
     del m_scene, c_scene
+    # phase 27: the shade kernel against the torch route
+    shade_rows = shade_phase(dev, card)
 
     # phase 14: training at full width
     train_launches, c5_call, train_s_step = config5_phase(dev, card)
@@ -3463,7 +3591,10 @@ def main():
                    r["launches"], r, r["max_abs_err"])
             for r in bounce_rows + [canonical_row]] + [
             kernel(f"sampler_{r['case']}_{r['draw']}", "sampler.cu", None,
-                   None, r, 0.0) for r in sampler_rows]}), flush=True)
+                   None, r, 0.0) for r in sampler_rows] + [
+            kernel(f"shade_{r['case']}", "shade.cu", None,
+                   r["launches_per_pass"], r, 0.0) for r in shade_rows]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

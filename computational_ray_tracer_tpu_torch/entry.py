@@ -119,6 +119,56 @@ def golden2_cornell_path(res=32, spp=4, device="cuda"):
     return Scene.build(materials=CORNELL_MATERIALS, **scene_args), camera, cfg
 
 
+# A sphere of each kind of models/materials.py for material_kinds_setup.
+KIND_MATERIALS = [
+    {"kind": "diffuse", "albedo_rgb": (0.7, 0.2, 0.1), "use_texture": True},
+    {"kind": "conductor", "albedo_rgb": (1.0, 1.0, 1.0), "metal": "metal-Au"},
+    {"kind": "dielectric", "albedo_rgb": (1.0, 1.0, 1.0),
+     "glass": "glass-BK7"},
+    {"kind": "rough_conductor", "albedo_rgb": (0.9, 0.8, 0.7),
+     "metal": "metal-Cu", "roughness": 0.3}]
+KIND_SPHERES = ((-0.45, -0.6, 0.3), (0.45, -0.6, 0.3), (-0.4, 0.2, -0.2),
+                (0.4, 0.1, 0.1))
+# The lights material_kinds_setup names; "quad" is the box's own.
+KIND_LIGHTS = {
+    "point": {"kind": "point", "position": (0.3, 0.7, -0.2), "scale": 2.0},
+    "distant": {"kind": "distant", "direction": (-0.3, -1.0, 0.4),
+                "rgb": (1.0, 0.9, 0.8)},
+    "ambient": {"kind": "ambient", "spd_named": "stdillum-D65",
+                "scale": 0.3}}
+
+
+def material_kinds_setup(res=512, lights=("distant", "quad"), texture=True,
+                         integrator="path", max_depth=5, device="cuda"):
+    """The Cornell box with a 0.3 m sphere of each material kind
+    (Lambertian, a gold conductor, a BK7 dielectric, which disperses, and
+    rough copper) under the ``lights`` named in ``KIND_LIGHTS`` (and
+    "quad", the box's light); with ``texture`` the left wall and the
+    Lambertian sphere are checker-textured (``checker_texture(16)``).
+    Sobol spp 4, ``integrator`` at ``max_depth`` with roulette from depth
+    2, so that a pass bounces past it."""
+    pos, idx, uv, mats, quad = mesh_gen.cornell_box(2.0)
+    mesh = trimod.MeshData.build(pos, idx, uvs=uv, device=device)
+    n0 = len(CORNELL_MATERIALS)
+    spheres = [{"radius": 0.3, "transform": shp.make_transform(c),
+                "material": n0 + k} for k, c in enumerate(KIND_SPHERES)]
+    named = dict(KIND_LIGHTS, quad=cornell_light(*quad))
+    scene = Scene.build(
+        materials=CORNELL_MATERIALS + KIND_MATERIALS,
+        lights=[named[name] for name in lights], spheres=spheres,
+        mesh=(mesh, np.where(np.asarray(mats) == 1, n0, mats)),
+        use_octree=False,
+        texture_rgb=mesh_gen.checker_texture(16) if texture else None,
+        device=device)
+    camera = cam.PerspectiveCamera.create((0, 0, -2.8), (res, res),
+                                          fov_y=50.0, look_at=(0, 0, 0))
+    cfg = integ.RenderConfig(
+        resolution=(res, res),
+        sampler=integ.SamplerConfig(kind="sobol", spp=4),
+        integrator=integrator, max_depth=max_depth, rr_start=2)
+    return scene, camera, cfg
+
+
 def golden3_mesh_octree_textured(res=32, spp=2, device="cuda"):
     """The golden-image configuration 3 of ``tests/test_golden.py``: a
     checker-textured 24x24 uv sphere in an octree, one distant light,

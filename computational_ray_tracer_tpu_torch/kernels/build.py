@@ -168,6 +168,10 @@ def load_library():
         lib.crt_sampler_draw.argtypes = [i, i, p, i, p, ctypes.c_longlong, p,
                                          p, p, p]
         lib.crt_sampler_draw.restype = i
+        lib.crt_shade_bounce.argtypes = [p, p]
+        lib.crt_shade_bounce.restype = i
+        lib.crt_shade_resolve.argtypes = [p, p, p, i, p]
+        lib.crt_shade_resolve.restype = i
         lib.crt_error_string.argtypes = [i]
         lib.crt_error_string.restype = ctypes.c_char_p
         _LIB = lib

@@ -14,6 +14,7 @@ from computational_ray_tracer_tpu_torch.ops import interp_kernel as ik
 from computational_ray_tracer_tpu_torch.ops import mesh_intersect_kernel as mik
 from computational_ray_tracer_tpu_torch.ops import octree_kernel as okern
 from computational_ray_tracer_tpu_torch.ops import rng_kernel
+from computational_ray_tracer_tpu_torch.ops import shade_kernel
 from computational_ray_tracer_tpu_torch.utils import metrics
 
 # The kernel wrappers' launch counters: name -> (module, attribute).
@@ -25,6 +26,8 @@ LAUNCH_COUNTERS = {
     "interp": (ik, "LAUNCHES"),
     "interp_backward": (ik, "LAUNCHES_BACKWARD"),
     "sampler": (rng_kernel, "LAUNCHES"),
+    "shade": (shade_kernel, "LAUNCHES"),
+    "shade_resolve": (shade_kernel, "LAUNCHES_RESOLVE"),
 }
 
 

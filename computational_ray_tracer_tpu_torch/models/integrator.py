@@ -64,13 +64,15 @@ from computational_ray_tracer_tpu_torch.ops import spectrum as spec
 from computational_ray_tracer_tpu_torch.ops import filters as flt
 from computational_ray_tracer_tpu_torch.ops import sensor as sen
 from computational_ray_tracer_tpu_torch.ops import film as filmmod
+from computational_ray_tracer_tpu_torch.ops import shade_kernel
 from computational_ray_tracer_tpu_torch.ops import spectra_data as data
 from computational_ray_tracer_tpu_torch.ops.montecarlo import power_heuristic
 from computational_ray_tracer_tpu_torch.models import graphs
 from computational_ray_tracer_tpu_torch.models import materials as mat
 from computational_ray_tracer_tpu_torch.models import lights as lgt
 from computational_ray_tracer_tpu_torch.models.scene import (
-    _packet_order, scene_intersect, scene_occluded, texture_lookup)
+    _packet_order, scene_anyhit, scene_intersect, scene_occluded,
+    texture_lookup)
 from computational_ray_tracer_tpu_torch.utils import metrics
 
 DIM_LAMBDA = 0
@@ -267,14 +269,43 @@ def _init_path_state(scene, o, d, wl):
         svals=_spectral_cache(scene, wl.lam))
 
 
+def _shades_on_card(scene, state):
+    """Whether a bounce shades in the hand-written kernels
+    (:func:`_bounce_step_fused`): its state is on a CUDA device and
+    autograd does not need the step (grad disabled, or no tensor of the
+    state or the scene requires grad). Everything else, the CPU and the
+    inverse job's forward included, takes the torch route."""
+    if state["lam"].device.type != "cuda":
+        return False
+    if not torch.is_grad_enabled():
+        return True
+    return not any(x.requires_grad for x in
+                   list(state.values()) + scene_leaves(scene)
+                   if isinstance(x, torch.Tensor))
+
+
 def _bounce_step(scene, cfg, state, depth, pixel, sample_idx, mode=None):
     """One bounce of the wavefront in ``mode`` (None: the mode of
     ``cfg.integrator``): closest hit; environment and emission (``mis``:
     weighted against the light pdf; ``simple``: on camera/specular prefixes
     only; ``walk``: always); next-event estimation with a shadow ray
     (``mis``, ``simple``); BSDF sampling and Russian roulette. Returns the
-    new state."""
+    new state. Where :func:`_shades_on_card` holds, the step after the
+    closest hit is :func:`_bounce_step_fused`'s two kernels, else
+    :func:`_bounce_step_torch`, their plain version. While a profiler
+    records, the recorder's ``crt.shade.fused`` and ``crt.shade.torch``
+    count the calls of each."""
     mode = mode or _MODES[cfg.integrator]
+    fused = _shades_on_card(scene, state)
+    if metrics.recording():
+        metrics.count("crt.shade.fused" if fused else "crt.shade.torch", 1)
+    step = _bounce_step_fused if fused else _bounce_step_torch
+    return step(scene, cfg, state, depth, pixel, sample_idx, mode)
+
+
+def _bounce_step_torch(scene, cfg, state, depth, pixel, sample_idx, mode):
+    """:func:`_bounce_step` in PyTorch operations: the shade kernel's
+    plain version."""
     s = cfg.sampler
     o, d = state["o"], state["d"]
     alive = state["alive"]
@@ -395,6 +426,54 @@ def _bounce_step(scene, cfg, state, depth, pixel, sample_idx, mode=None):
         pdf_prev=torch.where(hit, pdf_bsdf, state["pdf_prev"]),
         n_prev=torch.where(h3, si.n, state["n_prev"]),
         lam=lam, lam_pdf=lam_pdf, svals=svals)
+
+
+def _shade_inputs(scene, cfg, state, depth, pixel, sample_idx, mode):
+    """What the shade kernel takes besides the state: the closest hit's
+    surface record and material ids (as the torch route finds them), the
+    bounce's draws (``u_sel``, ``u_pos`` unless ``mode`` is walk; ``u2``,
+    ``u1``; ``u_rr`` with roulette) and whether roulette runs."""
+    s = cfg.sampler
+    o, d = state["o"], state["d"]
+    t_max = torch.where(state["alive"],
+                        torch.full_like(o[..., 0], float("inf")),
+                        torch.full_like(o[..., 0], -1.0))
+    si, mid, _ = scene_intersect(scene, o, d, t_max)
+    dim0 = DIM_BOUNCE0 + depth * DIMS_PER_BOUNCE
+    draws = {}
+    if mode != "walk":
+        draws["u_sel"] = s.get_1d(pixel, sample_idx, dim0 + 3)
+        draws["u_pos"] = s.get_2d(pixel, sample_idx, dim0 + 4)
+    draws["u2"] = s.get_2d(pixel, sample_idx, dim0)
+    draws["u1"] = s.get_1d(pixel, sample_idx, dim0 + 2)
+    roulette = depth >= cfg.rr_start
+    if roulette:
+        draws["u_rr"] = s.get_1d(pixel, sample_idx, dim0 + 6)
+    return si, mid, draws, roulette
+
+
+def _bounce_step_fused(scene, cfg, state, depth, pixel, sample_idx, mode):
+    """:func:`_bounce_step` on the card: the closest hit and its surface
+    record as the torch route, the draws, then one launch of the shade
+    kernel (``ops/shade_kernel.py``: environment, emission, the light
+    sample, BSDF evaluation and sampling, MIS, Russian roulette, the next
+    ray, the shadow ray and the pending NEE term), the unchanged
+    ``scene_anyhit``, and one launch that adds the term where the shadow
+    ray is clear. Both launches are fine ``crt.shade`` spans."""
+    si, mid, draws, roulette = _shade_inputs(scene, cfg, state, depth, pixel,
+                                             sample_idx, mode)
+    with metrics.fine_span("crt.shade"):
+        out = shade_kernel.shade_bounce(scene, state, si, mid, draws, mode,
+                                        roulette, cfg.ray_eps_scale)
+    if mode != "walk":
+        occ = scene_anyhit(scene, *out["shadow"])
+        with metrics.fine_span("crt.shade"):
+            shade_kernel.resolve(out["L"], out["nee"], occ)
+    return dict(o=out["o"], d=out["d"], beta=out["beta"], L=out["L"],
+                alive=out["alive"], specular=out["specular"],
+                pdf_prev=out["pdf_prev"], n_prev=out["n_prev"],
+                lam=state["lam"], lam_pdf=out["lam_pdf"],
+                svals=state["svals"])
 
 
 def _path_scan(scene, o, d, wl, pixel, sample_idx, cfg, mode=None,

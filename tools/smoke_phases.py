@@ -3,8 +3,8 @@ headline render of its phase 4 that phase 16 is held to.
 
     python tools/smoke_phases.py [PHASE ...]
 
-PHASE is any of 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26 (default: 16
-17). Builds the kernels, then runs the phases asked for, each printing its
+PHASE is any of 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27 (default:
+16 17). Builds the kernels, then runs the phases asked for, each printing its
 lines as in the smoke; for 16 and 22 it first renders the Cornell
 headline (512x512, spp 32, path/MIS depth 4) through ``render()`` after
 one warm-up pass: ``chip_smoke.sharded_phase`` (16:
@@ -27,7 +27,9 @@ against its eager loop, in turns) and ``chip_smoke.sampler_phase`` (25:
 the sampler kernel against its plain version at the cells' draws, timed,
 and its launches a pass or a step) and ``chip_smoke.kept_sharded_phase``
 (26: four ranks on four cards over NCCL, ``render_distributed``'s kept
-step graph against the eager steps; needs four cards); then one line
+step graph against the eager steps; needs four cards) and
+``chip_smoke.shade_phase`` (27: the shade kernel against the torch route
+on three scenes, bitwise, timed, with its launches a pass); then one line
 of each phase's seconds. Phase
 16's config 5 line carries no 14b time (14b does not run here). Needs a
 CUDA card; imports nothing of JAX.
@@ -90,6 +92,7 @@ def main():
         "24": lambda: cs.train_graph_phase(dev, card),
         "25": lambda: cs.sampler_phase(dev, card),
         "26": lambda: cs.kept_sharded_phase(card),
+        "27": lambda: cs.shade_phase(dev, card),
     }
     for name in sys.argv[1:] or ["16", "17"]:
         t0 = time.perf_counter()

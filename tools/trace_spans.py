@@ -15,8 +15,12 @@ ms beside it, what ``first_pass_ms.frames`` holds (eager pass plus
 capture, or on a window whose every frame replayed a kept graph one
 replay, ``replay_ms``), the window's frames that replayed a kept graph
 and that captured one (the ``crt.graph.kept`` / ``crt.graph.captured``
-counters) and the share that replayed, and the profiled frame's or job's
-host ms against the window's median. A frame rendered while the
+counters) and the share that replayed, the share of the profiled
+frame's bounces that shaded in the shade kernel (the ``crt.shade.fused``
+/ ``crt.shade.torch`` counters of its eager pass and capture; a profiled
+job only replays, so it counts none) and the ``crt.shade`` device ms of
+its last replay, and the profiled frame's or job's host ms against the
+window's median. A frame rendered while the
 profiler records takes no kept graph: it runs its own eager pass and
 capture, which give its fine spans and counters, so the profiled frame is
 one that captures whatever the window's frames did.
@@ -88,11 +92,16 @@ def run_cell(workload, seed, seconds, out_dir):
                  and seen["rec"]["t_start"] <= s["start"] <= t_end]
     window_ms = [(s["end"] - s["start"]) * 1e3 for s in in_window]
     after = [s for s in spans if s["name"] == root and s["start"] > t_end]
+    shade = {name: sum(metrics.counters(s["request"]).get(
+        f"crt.shade.{name}", 0) for s in after) for name in ("fused", "torch")}
+    bounces = shade["fused"] + shade["torch"]
     line = {"cell": workload, "seed": seed,
             "window_root_ms_median": (statistics.median(window_ms)
                                       if window_ms else None),
             "profiled_root_ms": ((after[-1]["end"] - after[-1]["start"]) * 1e3
-                                 if after else None)}
+                                 if after else None),
+            "shade_fused": shade["fused"], "shade_torch": shade["torch"],
+            "fused_share": shade["fused"] / bounces if bounces else None}
     if root == "crt.frame":
         got = out["metrics"]
         value = lambda name: got.get(name, {}).get("value")
@@ -108,6 +117,7 @@ def run_cell(workload, seed, seconds, out_dir):
                      + value("capture_ms.frames"))
         line.update(
             pass_device_ms=span_readers.device_ms(ctx, "crt.pass"),
+            shade_ms=span_readers.device_ms(ctx, "crt.shade"),
             sampler_ms=value("sampler_ms.frames"),
             intersect_ms=value("intersect_ms.frames"),
             replay_ms=value("replay_ms"),
