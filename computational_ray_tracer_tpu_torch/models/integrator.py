@@ -39,10 +39,11 @@ config, whatever its seed, replays it for every pass.
 ``render_pass_compact`` bounces only the alive rays from depth 1 on. Every
 sample is keyed by (pixel, sample, dim) and a dead ray's state no longer
 changes, so its image is the full wavefront's. ``render()`` runs the full
-wavefront unless ``cfg.compact`` asks for compaction, as in the reference:
-on the H100 each eager bounce is bound by its kernel launches, so
-gathering the alive rays only adds launches and a sync
-(``tools/compare_compaction.py``, PERF.md).
+wavefront unless ``cfg.compact`` asks for compaction, as in the reference.
+A compacted pass stays eager (a host sync a bounce, no kept graph): on the
+H100 it is bound by its launches, and at depth 8 on a 327,680-triangle
+octree it takes ~4x the kept full wavefront's time (the benchmark's
+``mesh.deep512`` cell, PERF.md).
 
 ``alive_fractions`` gives the per-depth alive share of one pass for
 effective-ray counts, and ``li_path``, ``li_simple_path`` and
@@ -643,7 +644,15 @@ def render_pass_compact(scene, camera, cfg: RenderConfig, filter_obj, sensor,
     ray's state no longer changes in a bounce, so skipping it changes no
     value. The scatter back is out of place (``index_put``), so the pass
     is differentiable like the full wavefront. ``alive_counts``, a list,
-    receives the count at each depth."""
+    receives the count at each depth.
+
+    Each count read is a coarse ``crt.compact.sync`` span; the order, the
+    gather (state and pixel ids) and the scatter back are fine
+    ``crt.compact.order`` / ``.gather`` / ``.scatter`` spans, whose
+    profiler ranges hold their kernels' launches. While a profiler records
+    (eagerly) the counts go to ``crt.bounce.alive`` and max_depth x the
+    pass's lanes to ``crt.bounce.lanes``, as :func:`_path_scan` counts
+    them."""
     if cfg.integrator == "direct":
         raise ValueError("compaction needs a multi-bounce integrator")
     w, h = cfg.resolution
@@ -651,21 +660,30 @@ def render_pass_compact(scene, camera, cfg: RenderConfig, filter_obj, sensor,
     pixel, wl, fw, o, d = camera_wavefront(camera, cfg, filter_obj,
                                            sample_idx, scene.device)
     state = _init_path_state(scene, o, d, wl)
+    counts = []
     for depth in range(cfg.max_depth):
-        k = int(state["alive"].sum())                    # host sync
-        if alive_counts is not None:
-            alive_counts.append(k)
+        with metrics.span("crt.compact.sync"):
+            k = int(state["alive"].sum())                # host sync
+        counts.append(k)
         if k == 0:
             break
         if depth == 0:
             state = _bounce_step(scene, cfg, state, depth, pixel, sample_idx)
             continue
-        idx = _packet_order(state["o"], state["d"], state["alive"])[:k]
-        sub = _bounce_step(scene, cfg, {key: v[idx] for key, v in
-                                        state.items()},
-                           depth, pixel[idx], sample_idx)
-        for key in _BOUNCE_KEYS:
-            state[key] = state[key].index_put((idx,), sub[key])
+        with metrics.fine_span("crt.compact.order"):
+            idx = _packet_order(state["o"], state["d"], state["alive"])[:k]
+        with metrics.fine_span("crt.compact.gather"):
+            sub = {key: v[idx] for key, v in state.items()}
+            sub_pixel = pixel[idx]
+        sub = _bounce_step(scene, cfg, sub, depth, sub_pixel, sample_idx)
+        with metrics.fine_span("crt.compact.scatter"):
+            for key in _BOUNCE_KEYS:
+                state[key] = state[key].index_put((idx,), sub[key])
+    if alive_counts is not None:
+        alive_counts.extend(counts)
+    if metrics.recording() and not metrics.capturing():
+        metrics.count("crt.bounce.alive", sum(counts))
+        metrics.count("crt.bounce.lanes", cfg.max_depth * pixel.numel())
     wl_out = spec.SampledWavelengths(wl.lam, state["lam_pdf"])
     rgb = _sensor_rgb(cfg, sensor, state["L"], wl_out)
     return rgb.reshape(h, w, 3), fw.reshape(h, w)
